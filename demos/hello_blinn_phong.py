@@ -13,19 +13,18 @@ import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj, make_plane
+from lsr_tpu.io.obj import make_plane
 from lsr_tpu.io.png import save_canvas_png
 from lsr_tpu.utils.host import fetch_image
 from lsr_tpu.render import concat_scene, render_forward, simple_camera
 from lsr_tpu.shading.common import checkerboard_texture, make_materials
 from lsr_tpu.shading.models import make_shade_context
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
+from lsr_tpu.resources.assets import make_head_mesh
 
 
 def main():
     w, h = 800, 600
-    monkey = load_obj(MONKEY)
+    monkey = make_head_mesh()
     floor = make_plane(4.0, y=-1.2)
     batch = {k: jnp.asarray(v) for k, v in concat_scene([monkey, floor]).items()}
 

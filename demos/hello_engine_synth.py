@@ -2,7 +2,7 @@
 
 The reference demo (hello-other-exps/hello_engine_synth.cpp) synthesizes a
 W16 engine voice into an SDL audio stream with a keyboard vehicle sim and
-an FFT visualizer window.  The TPU-native analog runs the same voice as a
+an FFT visualizer window.  The JAX analog runs the same voice as a
 lax.scan program over a scripted drive cycle and writes the edge-of-world
 artifacts headlessly: out/hello_engine_synth.wav (the audio) and
 out/hello_engine_synth_spectrum.png (the visualizer frame).
@@ -12,7 +12,9 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from lsr_tpu.core.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

@@ -9,14 +9,16 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from lsr_tpu.core.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 import jax.numpy as jnp
 
 from lsr_tpu.core import math3d as m3
 from lsr_tpu.core.frame import FrameParams, LightCullingMode, TechniqueMode
-from lsr_tpu.io.obj import load_obj, make_plane, make_uv_sphere
+from lsr_tpu.io.obj import make_plane, make_uv_sphere
 from lsr_tpu.io.png import save_canvas_png
 from lsr_tpu.utils.host import fetch_image
 from lsr_tpu.lighting.light_types import LightSetBuilder
@@ -32,14 +34,14 @@ from lsr_tpu.scene.scene import SceneBuilder, make_camera
 from lsr_tpu.shading.common import checkerboard_texture, make_materials
 from lsr_tpu.shading.models import make_shade_context
 from lsr_tpu.sky.sky_models import procedural_sky_cubemap
+from lsr_tpu.resources.assets import make_head_mesh
 
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
 SUN = (0.35, -0.7, 0.5)
 
 
 def main():
     w, h = 800, 600
-    monkey = load_obj(MONKEY)
+    monkey = make_head_mesh()
     b = SceneBuilder()
     # A moving monkey (prev_model differs -> motion vectors -> motion blur).
     cur = np.asarray(m3.translate([0.3, 0.3, 0.0]) @ m3.rotate_y(0.6))

@@ -11,14 +11,16 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from lsr_tpu.core.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj, make_plane
+from lsr_tpu.io.obj import make_plane
 from lsr_tpu.io.png import save_canvas_png
 from lsr_tpu.lighting.light_types import LightSetBuilder
 from lsr_tpu.passes.forward_plus import shade_forward_plus
@@ -26,7 +28,6 @@ from lsr_tpu.passes.tonemap import tonemap_pass
 from lsr_tpu.raster.interp import interpolate_gbuffer
 from lsr_tpu.raster.setup import scene_setup
 from lsr_tpu.raster.tiled import rasterize_direct
-from lsr_tpu.resources.cubemap import load_cubemap
 from lsr_tpu.resources.ibl import (
     compute_irradiance_map,
     compute_prefiltered_specular,
@@ -36,20 +37,18 @@ from lsr_tpu.shading.common import make_materials
 from lsr_tpu.shading.models import make_shade_context
 from lsr_tpu.sky.sky_models import render_sky
 from lsr_tpu.utils.host import fetch_image
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
-SKYBOX = "/root/reference/cpp-folders/src/assets/images/skybox/water_scene"
+from lsr_tpu.resources.assets import make_head_mesh, skybox_faces
 
 
 def main():
     w, h = 800, 600
-    faces = jnp.asarray(load_cubemap(SKYBOX, size=256))
+    faces = jnp.asarray(skybox_faces(256))
     irr = compute_irradiance_map(faces, out_size=8, samples=128)
     pref = tuple(compute_prefiltered_specular(faces, out_size=32,
                                               samples=64, mips=4))
 
     sb = SceneBuilder()
-    sb.add(load_obj(MONKEY), np.asarray(
+    sb.add(make_head_mesh(), np.asarray(
         m3.translate([0.0, 0.3, 0.0]) @ m3.rotate_y(0.5)), material=0)
     sb.add(make_plane(6.0, y=-1.0), material=1, casts_shadow=False)
     geom, objects = sb.build()

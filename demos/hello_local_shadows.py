@@ -13,14 +13,16 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from lsr_tpu.core.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj, make_plane
+from lsr_tpu.io.obj import make_plane
 from lsr_tpu.io.png import save_canvas_png
 from lsr_tpu.lighting.light_types import LightSetBuilder
 from lsr_tpu.lighting.local_shadows import (
@@ -37,12 +39,11 @@ from lsr_tpu.scene.scene import SceneBuilder, make_camera
 from lsr_tpu.shading.common import make_materials
 from lsr_tpu.shading.models import make_shade_context
 from lsr_tpu.utils.host import fetch_image
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
+from lsr_tpu.resources.assets import make_head_mesh
 
 
 def build():
-    monkey = load_obj(MONKEY)
+    monkey = make_head_mesh()
     b = SceneBuilder()
     for i in range(6):
         ang = i * np.pi / 3.0

@@ -10,14 +10,16 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from lsr_tpu.core.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj, make_plane
+from lsr_tpu.io.obj import make_plane
 from lsr_tpu.io.png import save_canvas_png
 from lsr_tpu.lighting.light_types import LightSetBuilder
 from lsr_tpu.passes.forward_plus import shade_forward_plus
@@ -33,14 +35,13 @@ from lsr_tpu.shading.common import (
 )
 from lsr_tpu.shading.models import make_shade_context
 from lsr_tpu.utils.host import fetch_image
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
+from lsr_tpu.resources.assets import make_head_mesh
 
 
 def main():
     w, h = 800, 600
     sb = SceneBuilder()
-    sb.add(load_obj(MONKEY), np.asarray(
+    sb.add(make_head_mesh(), np.asarray(
         m3.translate([0.0, 0.25, 0.0]) @ m3.rotate_y(0.4)), material=0)
     sb.add(make_plane(5.0, y=-1.0), material=1, casts_shadow=False)
     geom, objects = sb.build()

@@ -1,14 +1,14 @@
 """Parallelization strategies demo: the hello-parallelization family.
 
 The reference family demonstrates scanline-band threading, tile jobs,
-job-system graphs, fibers, and SIMD (hello-parallelization/*.cpp).  On TPU
+job-system graphs, fibers, and SIMD (hello-parallelization/*.cpp).  Across devices
 those map to Pallas tile grids (in-kernel, free) and DEVICE-MESH axes
 (SURVEY.md section 2.3).  This demo renders the same scene through each
 mesh strategy on a virtual 8-device CPU mesh and asserts agreement:
 
   dp  - cameras per device (batch parallelism)
   sp  - framebuffer row bands per device (screen-space parallelism)
-  lp  - light-set shards, partial sums psum over ICI (tensor/expert analog)
+  lp  - light-set shards, partial sums psum over the interconnect (tensor/expert analog)
   pp  - 2-stage frame pipeline, G-buffer over ppermute (GPipe analog)
 
 Run: python demos/hello_parallelization.py  (re-execs itself with
@@ -28,9 +28,10 @@ def main():
     import numpy as np
 
     from lsr_tpu.core import math3d as m3
-    from lsr_tpu.io.obj import load_obj, make_plane
+    from lsr_tpu.io.obj import make_plane
     from lsr_tpu.io.png import save_canvas_png
     from lsr_tpu.lighting.light_types import LightSetBuilder
+    from lsr_tpu.resources.assets import make_head_mesh
     from lsr_tpu.parallel.sharding import (
         make_light_sharded_forward,
         make_mesh,
@@ -45,8 +46,7 @@ def main():
     from lsr_tpu.shading.common import make_materials
     from lsr_tpu.shading.models import make_shade_context
 
-    monkey = load_obj(
-        "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj")
+    monkey = make_head_mesh()
     sb = SceneBuilder()
     sb.add(monkey, np.asarray(m3.translate([0, 0.2, 0]) @ m3.rotate_y(0.5)))
     sb.add(make_plane(5.0, y=-1.0), material=1, casts_shadow=False)
@@ -91,7 +91,7 @@ def main():
     out_lp = np.asarray(step_lp(cam.viewproj, cam.view, cam.proj,
                                 cam.zn, cam.zf))
     panels["sp4xlp2"] = out_lp
-    print("sp=4 x lp=2: lights sharded, partial sums psum'd over ICI")
+    print("sp=4 x lp=2: lights sharded, partial sums psum'd across devices")
 
     # pp: 2-stage frame pipeline.
     stream = make_pipelined_render(make_mesh_pp(2), geom, objects, ctx, w, h)
@@ -127,7 +127,9 @@ if __name__ == "__main__":
         raise SystemExit(subprocess.run(
             [sys.executable, os.path.abspath(__file__)], env=env).returncode)
     sys.path.insert(0, REPO)
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+    from lsr_tpu.core.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -14,7 +14,9 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from lsr_tpu.core.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

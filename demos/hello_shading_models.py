@@ -12,20 +12,21 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from lsr_tpu.core.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj
 from lsr_tpu.io.png import save_canvas_png
 from lsr_tpu.render import concat_scene, render_forward, simple_camera
 from lsr_tpu.shading.common import make_materials
 from lsr_tpu.shading.models import make_shade_context
 from lsr_tpu.utils.host import fetch_image
+from lsr_tpu.resources.assets import make_head_mesh
 
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
 
 MODELS = (
     "flat", "gouraud", "phong",
@@ -36,7 +37,7 @@ MODELS = (
 
 def main():
     w, h = 256, 256
-    monkey = load_obj(MONKEY)
+    monkey = make_head_mesh()
     batch = {k: jnp.asarray(v) for k, v in concat_scene([monkey]).items()}
     models = jnp.asarray(np.asarray(m3.rotate_y(0.4))[None])
     nmats = jnp.asarray(np.asarray(m3.normal_matrix(m3.rotate_y(0.4)))[None])

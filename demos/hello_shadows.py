@@ -7,7 +7,9 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from lsr_tpu.core.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 import jax.numpy as jnp
@@ -15,14 +17,14 @@ import jax.numpy as jnp
 from lsr_tpu.core import math3d as m3
 from lsr_tpu.core.frame import ShadowPassParams
 from lsr_tpu.geometry.occlusion import run_occlusion_pass
-from lsr_tpu.io.obj import load_obj, make_plane
+from lsr_tpu.io.obj import make_plane
 from lsr_tpu.io.png import save_canvas_png
 from lsr_tpu.utils.host import fetch_image
 from lsr_tpu.passes.shadow import make_sun_shadow
 from lsr_tpu.passes.tonemap import tonemap_pass
 from lsr_tpu.raster.interp import interpolate_gbuffer
 from lsr_tpu.raster.setup import scene_setup
-from lsr_tpu.raster.tiled import rasterize_tiled
+from lsr_tpu.raster.tiled import rasterize_direct
 from lsr_tpu.scene.scene import SceneBuilder, cull_scene, make_camera
 from lsr_tpu.shading.common import make_materials
 from lsr_tpu.shading.models import (
@@ -30,14 +32,14 @@ from lsr_tpu.shading.models import (
     make_shade_context,
     shade_blinn_phong,
 )
+from lsr_tpu.resources.assets import make_head_mesh
 
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
 SUN = (0.35, -0.8, 0.45)
 
 
 def main():
     w, h = 800, 600
-    monkey = load_obj(MONKEY)
+    monkey = make_head_mesh()
     b = SceneBuilder()
     rng = np.random.default_rng(7)
     for i in range(6):
@@ -77,7 +79,8 @@ def main():
         geom.vtx_obj, geom.tri_obj, objects.model, objects.normal_mat,
         cam.viewproj, w, h, obj_visible=objects.visible,
     )
-    depth, tid, _ = rasterize_tiled(setup, w, h, cam.zn, cam.zf, cap=2048)
+    depth, tid, _ = rasterize_direct(setup, w, h, cam.zn, cam.zf,
+                                     spatial_sort=True)
     gb = interpolate_gbuffer(setup, depth, tid)
     shaded = shade_blinn_phong(gb, ctx)
     bg = jnp.broadcast_to(jnp.asarray((0.05, 0.07, 0.12), jnp.float32), shaded.shape)

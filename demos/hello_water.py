@@ -4,7 +4,9 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from lsr_tpu.core.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import dataclasses
 
@@ -12,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj, make_plane
+from lsr_tpu.io.obj import make_plane
 from lsr_tpu.io.png import save_canvas_png
 from lsr_tpu.utils.host import fetch_image
 from lsr_tpu.passes.tonemap import tonemap_pass
@@ -28,8 +30,8 @@ from lsr_tpu.shading.models import (
     shade_blinn_phong,
 )
 from lsr_tpu.sky.sky_models import render_sky
+from lsr_tpu.resources.assets import make_head_mesh
 
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
 WATER_Y = -0.8
 SUN = (0.35, -0.75, 0.5)
 
@@ -54,7 +56,7 @@ def render_view(geom, objects, ctx, viewproj, zn, zf, w, h, cull_mode=1,
 def main():
     w, h = 800, 600
     b = SceneBuilder()
-    b.add(load_obj(MONKEY), np.asarray(m3.translate([0.0, 0.35, 0.0])
+    b.add(make_head_mesh(), np.asarray(m3.translate([0.0, 0.35, 0.0])
                                        @ m3.rotate_y(0.4)))
     water_id = b.add(make_plane(8.0, y=WATER_Y), material=1, casts_shadow=False)
     geom, objects = b.build()

@@ -5,19 +5,15 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import numpy as np
-
-from lsr_tpu.io.obj import load_obj
 from lsr_tpu.io.png import save_canvas_png
 from lsr_tpu.utils.host import fetch_image
 from lsr_tpu.raster.wireframe import render_wireframe
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
+from lsr_tpu.resources.assets import make_head_mesh
 
 
 def main():
     w = h = 600
-    mesh = load_obj(MONKEY)
+    mesh = make_head_mesh()
     canvas = fetch_image(render_wireframe(mesh, w, h))
     out = os.path.join(os.path.dirname(__file__), "..", "out")
     os.makedirs(out, exist_ok=True)

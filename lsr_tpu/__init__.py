@@ -1,12 +1,14 @@
-"""lsr_tpu — a TPU-native software-rendering framework (JAX / XLA / Pallas).
+"""lsr_tpu — an accelerator software-rendering framework (JAX / XLA / Pallas).
 
 A ground-up re-design of the capabilities of the SHS CPU software renderer
-(reference: sharavsambuu/leisure-software-renderer) for TPU hardware:
+(reference: sharavsambuu/leisure-software-renderer) as array programs for
+an NVIDIA GPU:
 
-- framebuffers are HBM-resident jax arrays threaded functionally through passes,
-- the triangle rasterizer is a tiled Pallas kernel (screen-tile grid, per-tile
-  triangle binning, edge-function coverage, perspective-correct varyings,
-  z-buffer resolution inside the tile),
+- framebuffers are device-resident jax arrays threaded functionally through
+  passes,
+- the triangle rasterizer is a tiled Pallas kernel on the Triton route
+  (screen-tile grid, per-tile triangle lists, edge-function coverage,
+  z-buffer resolution inside the tile; varyings are interpolated after),
 - shading models are fused, jitted fullscreen array transforms,
 - the pass/pipeline layer is plain-Python value code (frame graph, contracts,
   recipes) producing static, jit-compiled frame programs,

@@ -1,6 +1,6 @@
 """Engine-sound synthesizer (HelloEngineSynth capability).
 
-The TPU re-expression of the reference's SDL audio engine synth
+The JAX re-expression of the reference's SDL audio engine synth
 (hello-other-exps/hello_engine_synth.cpp): a "W16" engine voice built from
 
 - a firing-order fundamental f0 = rpm/60 * cylinders/2 * 0.5 with

@@ -124,7 +124,7 @@ class LocalShadowParams:
     vis_scale: int = 1         # sampling-resolution divisor for the
                                # visibility planes (1 = per-pixel exact;
                                # 2 = half-res + bilinear upsample, a
-                               # TPU perf knob documented in PARITY.md)
+                               # perf knob documented in PARITY.md)
     vis_crop: tuple = ()       # static crop cascade for plane evaluation:
                                # (ch, cw) or smallest-first
                                # ((ch0,cw0),(ch1,cw1),...) — exact to 1 ULP
@@ -199,11 +199,7 @@ class FrameParams:
     pass_params: PassParamBlocks = dataclasses.field(default_factory=PassParamBlocks)
     technique: TechniqueParams = dataclasses.field(default_factory=TechniqueParams)
 
-    # Raster kernel knobs (TPU-specific; no reference analog).
-    raster_tile_h: int = 64
-    raster_tile_w: int = 128
-    raster_cap: int = 1024
-    raster_chunk: int = 16
+    # False routes the camera raster to the brute XLA anchor (parity runs).
     use_tiled_raster: bool = True
     # Density switch for the compact geometry front-end (r5: cull+compact
     # before the wide setup work; rasterizer.hpp:37-39's strategy-switch

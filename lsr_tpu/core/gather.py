@@ -1,22 +1,15 @@
-"""TPU-friendly row gathers.
+"""Row gathers.
 
-Measured on the bench workload (2M pixels x 56-lane records, real TPU,
-scripts/dbg_gather.py):
-
-    table[flat_idx]  (flat (N,) indices, 2D table)   12 ms
-    jnp.take(table, flat_idx, axis=0)                15 ms
-    lax.gather 1D-flattened slice form             2,791 ms  (!!)
-
-The 1D-table + slice_sizes=(lanes,) formulation — superficially "layout
-proof" — lowers to a slow scalar slice loop on TPU and must never be used.
-The fast path is the ordinary row gather, fed FLAT int32 indices (2D index
-arrays can also de-optimize the lowering) and reshaped back afterwards.
+The fast gather is the ordinary row gather `table[flat_idx]`, fed FLAT
+int32 indices (2D index arrays can de-optimize the lowering) and reshaped
+back afterwards.  The 1D-table + slice_sizes=(lanes,) formulation of
+lax.gather — superficially "layout proof" — lowers to a scalar slice loop
+and must not be used.
 
 Layout caveat: the gather is only fast when the table is physically
 row-major.  Tables that cross a jit boundary (jit arguments) always are;
-tables packed in the same program normally are too (measured: packing fused
-with the gather is still 12 ms), but if a regression appears, check the
-dumped HLO for a `{0,1}` parameter layout first.
+tables packed in the same program normally are too, but if a regression
+appears, check the dumped HLO for a `{0,1}` parameter layout first.
 """
 
 from __future__ import annotations

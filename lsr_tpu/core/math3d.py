@@ -1,10 +1,10 @@
 """Left-handed 3D math kernel (conventions: LH, +Y up, +Z forward, NDC z in [-1,1]).
 
 Mirrors the semantics the reference gets from GLM (`glm::perspectiveLH_NO`,
-`glm::lookAtLH`, `glm::orthoLH_NO`; see /root/reference/docs/spec/conventions.md
+`glm::lookAtLH`, `glm::orthoLH_NO`; see the reference's docs/spec/conventions.md
 and shs-renderer-lib usage), expressed as row-major matrices acting on column
 vectors: ``clip = M @ [x, y, z, 1]^T``.  Batched point transforms are written as
-``pts_h @ M.T`` so they lower onto the MXU.
+``pts_h @ M.T`` so they lower to one matmul.
 
 All functions accept/return jnp arrays and are jit/vmap-safe unless noted.
 """
@@ -137,7 +137,7 @@ def euler_xyz(rx, ry, rz):
 
 
 # ---------------------------------------------------------------------------
-# Batched transforms (MXU-shaped)
+# Batched transforms
 # ---------------------------------------------------------------------------
 
 def transform_points_h(m, pts):

@@ -30,6 +30,11 @@ def meters(x: float) -> float:
     return x * METER
 
 
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division of static sizes."""
+    return -(-a // b)
+
+
 # --- logging (core/log.hpp) --------------------------------------------------
 
 _LEVELS = {"debug": 0, "info": 1, "warn": 2, "error": 3}

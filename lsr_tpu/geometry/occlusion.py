@@ -1,6 +1,6 @@
 """Occlusion culling: low-res occluder depth raster + HiZ AABB rect tests.
 
-TPU re-design of the reference's two occlusion backends:
+Array-program re-design of the reference's two occlusion backends:
 - software occlusion (culling_software.hpp:117-289): depth-rasterize occluder
   geometry at a low-res proxy buffer (the flagship uses 320x180,
   hello_rendering_paths.cpp:94-97), then test each occludee's projected AABB
@@ -22,22 +22,14 @@ import jax
 import jax.numpy as jnp
 
 from lsr_tpu.raster.brute import rasterize_brute
-from lsr_tpu.raster.setup import scene_setup
-from lsr_tpu.raster.tiled import rasterize_tiled
+from lsr_tpu.raster.tiled import rasterize_direct
 
 
 def render_occluder_depth(geom, objects, viewproj, zn, zf,
                           width: int = 320, height: int = 180,
-                          occluder_mask=None, use_tiled: bool = True,
-                          cap: int = 1024, kernel: str | None = None):
-    """Depth-only raster of occluder geometry at proxy resolution.
-
-    kernel: "direct" (listless, the default for proxy-sized buffers —
-    avoids the binned path's scatter), "binned", or "brute" (XLA anchor);
-    use_tiled=False is the legacy spelling of "brute"."""
-    from lsr_tpu.raster.setup import DEPTH_NDC01
-    from lsr_tpu.raster.tiled import rasterize_direct
-
+                          occluder_mask=None, use_tiled: bool = True):
+    """Depth-only raster of occluder geometry at proxy resolution
+    (use_tiled=False: the brute XLA anchor)."""
     mask = objects.visible if occluder_mask is None else occluder_mask
     # Depth-only setup (same CULL_BACK facing rule as the main view; the
     # occluder proxy never reads normals/uvs — raster/setup.py).
@@ -48,16 +40,9 @@ def render_occluder_depth(geom, objects, viewproj, zn, zf,
         objects.model, viewproj, width, height,
         cull_mode=CULL_BACK, obj_visible=mask,
     )
-    if kernel is None:
-        kernel = "direct" if use_tiled else "brute"
-    if kernel == "direct":
-        from lsr_tpu.raster.tiled import SORT_DEPTH_SETUP
-
+    if use_tiled:
         depth, _, _ = rasterize_direct(setup, width, height, zn, zf,
-                                       track_ids=False,
-                                       spatial_sort=SORT_DEPTH_SETUP)
-    elif kernel == "binned":
-        depth, _, _ = rasterize_tiled(setup, width, height, zn, zf, cap=cap)
+                                       track_ids=False, spatial_sort=True)
     else:
         depth, _ = rasterize_brute(setup, width, height, zn, zf)
     return depth
@@ -98,7 +83,8 @@ def occlusion_cull_aabbs(depth, viewproj, wmins, wmaxs, zn, zf,
     )  # (8, 3)
     corners = wmins[:, None, :] + (wmaxs - wmins)[:, None, :] * sel[None]  # (B,8,3)
     hom = jnp.concatenate([corners, jnp.ones((b, 8, 1), jnp.float32)], -1)
-    clip = hom @ viewproj.T  # (B, 8, 4)
+    clip = jnp.matmul(hom, viewproj.T,
+                      precision=jax.lax.Precision.HIGHEST)  # (B, 8, 4)
     wc = clip[..., 3]
     near_cross = jnp.any(wc <= 1e-6, axis=-1)  # behind/at camera -> keep
 

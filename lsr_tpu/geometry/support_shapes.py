@@ -1,11 +1,11 @@
 """Analytic culling volumes as batched support functions.
 
-The TPU re-expression of the reference's volume library + SAT-style
+The JAX re-expression of the reference's volume library + SAT-style
 classification (geometry/volumes.hpp:25-129 Sphere/OBB/Capsule/Cone/
 Cylinder/ConeFrustum/ConvexPolyhedron; geometry/culling_query.hpp:61-151
 `support_max_dot` overloads; :152 `classify_support_shape`).
 
-Where the reference dispatches on a std::variant per shape, the TPU build
+Where the reference dispatches on a std::variant per shape, the array build
 packs every shape into ONE fixed-width SoA record and evaluates all kinds
 branchlessly — a (B, 24) array of shapes classifies against a convex cell
 in a handful of vectorized ops, so thousands of shape-vs-cell queries (light
@@ -28,6 +28,7 @@ Record layout (B, 24) f32:
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -240,7 +241,8 @@ def classify_convex_vertices(verts, planes, outside_eps=1e-5,
     """Vertex-cloud classification (classify_convex_vertices,
     culling_query.hpp:35-59).  verts: (B, V, 3) convex hull vertices
     (pad with repeats); planes: (P, 4).  Returns (B,) i32 CullClass."""
-    d = jnp.einsum("bvc,pc->bvp", verts, planes[:, :3]) + planes[:, 3]
+    d = jnp.einsum("bvc,pc->bvp", verts, planes[:, :3],
+                   precision=jax.lax.Precision.HIGHEST) + planes[:, 3]
     any_inside = jnp.any(d >= -outside_eps, axis=1)        # (B, P)
     all_inside = jnp.all(d >= inside_eps, axis=1)
     outside = jnp.any(~any_inside, axis=1)

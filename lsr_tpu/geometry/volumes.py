@@ -1,6 +1,6 @@
 """Analytic culling volumes + frustum tests (vectorized SoA).
 
-The TPU re-expression of geometry/volumes.hpp:25-129 and
+The JAX re-expression of geometry/volumes.hpp:25-129 and
 frustum_culling.hpp:48-84: volumes live as batched arrays and every test is
 an elementwise masked computation — culling produces visibility MASKS, not
 compacted lists (static shapes; the rasterizer consumes masks).
@@ -8,6 +8,7 @@ compacted lists (static shapes; the rasterizer consumes masks).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -55,8 +56,10 @@ def transform_aabb(model, mins, maxs):
     center = (mins + maxs) * 0.5
     extent = (maxs - mins) * 0.5
     c_h = jnp.concatenate([center, jnp.ones_like(center[..., :1])], -1)
-    c_w = jnp.einsum("bij,bj->bi", model, c_h)[..., :3]
-    e_w = jnp.einsum("bij,bj->bi", jnp.abs(model[..., :3, :3]), extent)
+    hi = jax.lax.Precision.HIGHEST  # culling must stay conservative
+    c_w = jnp.einsum("bij,bj->bi", model, c_h, precision=hi)[..., :3]
+    e_w = jnp.einsum("bij,bj->bi", jnp.abs(model[..., :3, :3]), extent,
+                     precision=hi)
     return c_w - e_w, c_w + e_w
 
 

@@ -1,11 +1,11 @@
 """Framebuffer / render-target pytrees: HBM-resident jax arrays.
 
-TPU-native analog of gfx/rt_types.hpp: the reference's RT structs
+JAX analog of gfx/rt_types.hpp: the reference's RT structs
 (RT_ColorHDR :79, RT_DepthBuffer :91, RT_ColorDepthVelocity :130,
 RT_ShadowDepth rt_shadow.hpp:18) become immutable array pytrees threaded
 through passes.  Layout is (H, W, C) row-major with row 0 = bottom
 (canvas convention, conventions.md §2); W is the fastest axis so screen
-rows map onto TPU lanes.
+rows are contiguous in memory.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Tiled / clustered light binning.
 
-The TPU re-design of jolt_light_culling.hpp:135-341 + light_culling_runtime.hpp:
+The JAX re-design of jolt_light_culling.hpp:135-341 + light_culling_runtime.hpp:
 166-373: per-tile (16 px) light index lists with a hard per-tile cap (the
 flagship's 128, hello_rendering_paths.cpp:90-91), in three variants:
 
@@ -35,7 +35,7 @@ def _tile_grid(width, height, tile_w, tile_h=None):
 
 def view_space_spheres(view, centers, radii):
     hom = jnp.concatenate([centers, jnp.ones_like(centers[..., :1])], -1)
-    c_view = hom @ view.T
+    c_view = jnp.matmul(hom, view.T, precision=jax.lax.Precision.HIGHEST)
     return c_view[..., :3], radii
 
 
@@ -157,7 +157,7 @@ def cull_lights_tiled(
     else:
         centers, radii = light_bounding_spheres(lights)
         c_view, r = view_space_spheres(view, centers, radii)
-        d = jnp.einsum("tpc,lc->tpl", planes, c_view)
+        d = jnp.einsum("tpc,lc->tpl", planes, c_view, precision=jax.lax.Precision.HIGHEST)
         inside = jnp.all(d >= -r[None, None, :], axis=1)  # (tiles, L)
         zmin_l, zmax_l = c_view[:, 2] - r, c_view[:, 2] + r
 
@@ -233,7 +233,7 @@ def cull_lights_clustered(
     else:
         centers, radii = light_bounding_spheres(lights)
         c_view, r = view_space_spheres(view, centers, radii)
-        d = jnp.einsum("tpc,lc->tpl", planes, c_view)
+        d = jnp.einsum("tpc,lc->tpl", planes, c_view, precision=jax.lax.Precision.HIGHEST)
         inside_xy = jnp.all(d >= -r[None, None, :], axis=1)  # (tiles, L)
         zmin_l, zmax_l = c_view[:, 2] - r, c_view[:, 2] + r
 

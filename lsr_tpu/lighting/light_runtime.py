@@ -262,7 +262,7 @@ def accumulate_local_lights(
     planes (lighting/local_shadows.py; channel K is the constant 1.0
     plane); light_shadow_index: (L,) i32 channel per light.  Applied as a
     one-hot (K+1)-wide matmul per binned light — the eval_local_shadow
-    multiply of fp_stress_scene.frag:520-521, MXU-shaped.
+    multiply of fp_stress_scene.frag:520-521.
     Returns (diffuse (H,W,3), specular (H,W,3)).
     """
     tiles_x = -(-width // tile_size)
@@ -295,7 +295,7 @@ def accumulate_local_lights(
 
     if list_idx is None:
         # Pre-gather ALL per-tile light records in ONE wide row gather
-        # (per-row overhead dominates TPU gathers; see raster/interp.py).
+        # (gathers pay a per-row overhead; see raster/interp.py).
         packed = pack_light_records(lights)
         from lsr_tpu.core.gather import take_rows
         tile_rec = take_rows(packed, jnp.maximum(lists_p, 0))  # (T, capP, 32)
@@ -320,15 +320,15 @@ def accumulate_local_lights(
                 onehot = (sidx[..., None]
                           == jnp.arange(kp1)[None, None, :]).astype(
                               jnp.float32)                    # (T, chunk, K+1)
-                vis = jnp.einsum("tpk,tck->tpc", vis_t, onehot)
+                vis = jnp.einsum("tpk,tck->tpc", vis_t, onehot,
+                                 precision=jax.lax.Precision.HIGHEST)
                 d = d * vis[..., None]
                 s = s * vis[..., None]
         else:
             rows = jax.lax.dynamic_slice_in_dim(lists_p, ck * chunk, chunk, axis=1)
             idx = rows[list_idx]  # (T, px, chunk)
             # ONE wide packed-record gather per chunk instead of 17 column
-            # gathers (TPU gathers pay per-op overhead; the clustered path
-            # at 640x360 was gather-op bound).
+            # gathers (each gather op pays its own overhead).
             from lsr_tpu.core.gather import take_rows as _tr
 
             rec = _tr(packed_cl, jnp.maximum(idx, 0))      # (T, px, chunk, 32)

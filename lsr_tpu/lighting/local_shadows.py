@@ -1,6 +1,6 @@
 """Local light shadows: spot maps + point cube faces + area proxies.
 
-The TPU-native equivalent of the flagship's local shadow atlas
+The equivalent of the flagship's local shadow atlas
 (hello_rendering_paths.cpp:104-109 — up to 8 spot maps @1024^2 and 2 point
 lights x 6 cube faces @512^2 (shadow_technique.hpp:36-40 quality params) —
 recorded by record_shadow_passes :6912) and the forward+ shader's
@@ -8,7 +8,7 @@ recorded by record_shadow_passes :6912) and the forward+ shader's
 budgets/techniques per shadow_technique.hpp:18-119 (SpotMap2D / PointCube /
 AreaProxySpotMap2D, ShadowCasterBudget, ShadowQualityParams).
 
-Design (TPU-first, not a port):
+Design (not a port):
 
 - Spot (and area-proxy) maps form one depth stack (n_spot, S1, S1); point
   cube faces form a second stack (n_point*6, S2, S2), both rendered
@@ -24,14 +24,14 @@ Design (TPU-first, not a port):
   texels (no hand-derived face-UV table to get wrong; the reference's GLSL
   face-UV path at fp_stress_scene.frag:302 is equivalent by construction).
 - The light loop then applies visibility with a one-hot (K+1)-wide matmul
-  per binned light (see lighting/light_runtime.accumulate_local_lights) —
-  an MXU-shaped op instead of a per-(pixel, light) gather.
+  per binned light (see lighting/light_runtime.accumulate_local_lights)
+  instead of a per-(pixel, light) gather.
 - PCF uses the packed-tap wide-gather path (see shadow_sample.py): the
   whole (2r+1)^2 window is one take_rows() gather from a flat tap table
   covering the stack.
 - vis_scale > 1 evaluates the visibility planes on a strided pixel grid and
   bilinearly upsamples — a perf knob for large framebuffers (each plane is
-  a full-screen gather whose cost is row-count-bound on TPU).  vis_scale=1
+  a full-screen gather whose cost grows with its row count).  vis_scale=1
   is the exact per-pixel reference semantics (PARITY.md documents the knob).
 
 Deviation from the reference, by intent: the reference's GLSL point-light
@@ -81,9 +81,7 @@ _FACE_UPS = np.asarray(
 )
 
 # Anchor stride of the packed atlas windows.  6 (not 8) so the window is
-# (6+2r)^2 = 64 lanes at r=1 — at most one native gather lane-group per row
-# (wider windows pay a second gather pass per row; see
-# memory/tpu-gather-cost-model and scripts/dbg_taps.py).
+# (6+2r)^2 = 64 lanes at r=1: a narrower record per gathered row.
 _TAP_STRIDE = 6
 
 
@@ -146,8 +144,8 @@ class LocalShadowMaps:
 
 
 def default_vis_crop(height: int, width: int) -> tuple:
-    """A four-level crop cascade rounded to TPU-friendly tile sizes
-    (sublane multiple of 8, lane multiple of 128), ascending area.
+    """A four-level crop cascade rounded to whole blocks (multiples of 8
+    rows and 128 columns), ascending area.
 
     Levels 0/1 cover the flagship orbit's measured footprints (spot bboxes
     up to 652x897 at 1080p, point range-spheres 535x558; level 1 catches
@@ -161,7 +159,7 @@ def default_vis_crop(height: int, width: int) -> tuple:
     genuinely cover the screen.  A too-small SINGLE window is worse than
     none (measured: (256,512) alone slower than full-screen at 1080p) —
     the cascade's misses land on the next level instead."""
-    def rh(f):  # height rounded up to sublane multiple, capped
+    def rh(f):  # height rounded up to a multiple of 8, capped
         return min(height, -(-int(height * f) // 8) * 8)
 
     def rw(f):
@@ -277,18 +275,17 @@ def _render_slot_stack(geom, objects, vp_stack, size, caster_mask,
 
     Strategies, picked by `packed` (False | True | "hybrid"):
 
-    - packed=False: one lax.map over slots runs setup + depth raster per
-      slot — the r3 production path.  With caster_enabled it wraps every
-      slot in lax.cond, which the r5 esm3 attribution measured at nearly
-      2x the stage-only cost in-frame (66.5 vs 34.5 ms).
+    - packed=False (the default): one lax.map over slots runs setup +
+      depth raster per slot.  With caster_enabled it wraps every slot in
+      lax.cond.
     - packed=True: ONE batched depth-only setup over all slots
       (scene_setup_slots_depth), merged into a tall framebuffer by
       _stack_slot_setups, then ONE rasterize_direct launch with band-local
-      rows (band_h=size).  Bit-exact vs the map path (r5 esm5) but the
-      tall raster measured SLOWER (89 vs 65 ms stage-only) — kept for A/B.
+      rows (band_h=size).  Bit-exact vs the map path.
     - packed="hybrid": the batched setup (culled slots lane-masked, no
-      lax.cond anywhere) + a lax.map of per-slot raster launches.  The
-      promoted r5 production path (scripts/dbg_local.py esm6 A/B).
+      lax.cond anywhere) + a lax.map of per-slot raster launches.
+
+    Which is fastest on the GPU has not been measured.
 
     slot_enabled: optional (n,) bool — slots whose light was culled by the
     camera this frame render as all-far depth (their planes are skipped
@@ -297,7 +294,7 @@ def _render_slot_stack(geom, objects, vp_stack, size, caster_mask,
     raster (the far clear value is the same all-far result)."""
     from lsr_tpu.geometry.volumes import frustum_cull_objects
     from lsr_tpu.raster.brute import rasterize_brute
-    from lsr_tpu.raster.setup import CULL_NONE, DEPTH_NDC01, scene_setup
+    from lsr_tpu.raster.setup import CULL_NONE, DEPTH_NDC01
     from lsr_tpu.raster.tiled import rasterize_direct
     from lsr_tpu.scene.scene import object_world_aabbs
 
@@ -320,12 +317,9 @@ def _render_slot_stack(geom, objects, vp_stack, size, caster_mask,
             cull_mode=CULL_NONE, obj_visible=sm,
         )
         if use_tiled:
-            from lsr_tpu.raster.tiled import SORT_DEPTH_SETUP
-
             d, _, _ = rasterize_direct(
                 setup, size, size, jnp.float32(0.0), one,
-                depth_mode=DEPTH_NDC01, track_ids=False,
-                tile_h=128, tile_w=128, spatial_sort=SORT_DEPTH_SETUP,
+                depth_mode=DEPTH_NDC01, track_ids=False, spatial_sort=True,
             )
         else:
             d, _ = rasterize_brute(
@@ -359,7 +353,7 @@ def _render_slot_stack(geom, objects, vp_stack, size, caster_mask,
                 d1, _, _ = rasterize_direct(
                     st1, size, size, jnp.float32(0.0), one,
                     depth_mode=DEPTH_NDC01, track_ids=False,
-                    tile_h=min(128, size), tile_w=min(128, size))
+                    spatial_sort=True)
                 return d1
             depth = jax.lax.map(rs, ts)
         else:
@@ -367,7 +361,7 @@ def _render_slot_stack(geom, objects, vp_stack, size, caster_mask,
             d, _, _ = rasterize_direct(
                 st, size, n * size, jnp.float32(0.0), one,
                 depth_mode=DEPTH_NDC01, track_ids=False,
-                tile_h=min(128, size), tile_w=min(128, size), band_h=size)
+                tile_h=min(32, size), tile_w=min(32, size), band_h=size)
             depth = d.reshape(n, size, size)
     elif slot_enabled is None:
         depth = jax.lax.map(render_slot_vp, vp_stack)   # (n, S, S)
@@ -560,11 +554,8 @@ def _pcf_from_rows(taps, rows, rx, ry, z_test, radius: int):
     (2r+1)^2 window.
 
     rows/rx/ry/z_test: (K, Hs, Ws); returns lit fraction (K, Hs, Ws).
-    TPU gather ROW RATE degrades with table size (~230M rows/s from a
-    7.5MB per-slot table vs 60M rows/s from the shared 60MB atlas table,
-    scripts/dbg_vis2.py: 264 -> 70 ms for 8 spot planes at 1080p) — so
-    callers pass PER-SLOT table slices with slot-local rows, not the
-    shared atlas table."""
+    A gather's row rate falls as its table grows, so callers pass PER-SLOT
+    table slices with slot-local rows, not the shared atlas table."""
     win = _TAP_STRIDE + 2 * radius
     window = take_rows(taps, rows)                  # (K, Hs, Ws, win^2)
     lane = jnp.arange(win * win, dtype=jnp.int32)
@@ -788,8 +779,8 @@ def _spot_plane_one(sh: LocalShadowMaps, k: int, world_pos, normal):
     if TAPS_BARRIER:
         # Materialize the slot's table slice contiguously: the gather row
         # rate is TABLE-size-bound, and a slice fused into the gather
-        # reads the whole stack (memory/tpu-gather-cost-model; the sun
-        # path applies the same barrier in make_shadow_context).
+        # reads the whole stack (the sun path applies the same barrier in
+        # make_shadow_context).
         tab = jax.lax.optimization_barrier(tab)
     lit = _pcf_from_rows(tab, rows, rx, ry, z01 - bias[0], sh.pcf_radius)
     strength = jnp.clip(sh.strength[k], 0.0, 1.0)
@@ -839,8 +830,8 @@ def _point_plane_one(sh: LocalShadowMaps, k: int, world_pos, normal):
     """One POINT_CUBE visibility plane on an arbitrary (H', W') grid.
 
     Face = major axis of rel (point_shadow_face_uv :302 semantics); the
-    face slot's own VP is fetched with a one-hot (6-wide) contraction —
-    MXU work instead of a per-pixel row gather — so the sample stays
+    face slot's own VP is fetched with a one-hot (6-wide) contraction
+    instead of a per-pixel row gather — so the sample stays
     consistent with however the raster mapped NDC to texels."""
     base = int(sh.base_slots[k])
     pos = sh.caster_pos[k][None]
@@ -861,7 +852,7 @@ def _point_plane_one(sh: LocalShadowMaps, k: int, world_pos, normal):
     vps = jax.lax.dynamic_slice_in_dim(sh.point_viewproj, base, 6, 0)
     onehot = (face[..., None]
               == jnp.arange(6, dtype=jnp.int32)).astype(jnp.float32)
-    vp_rows = jnp.einsum("hwf,fc->hwc", onehot, vps)
+    vp_rows = jnp.einsum("hwf,fc->hwc", onehot, vps, precision=jax.lax.Precision.HIGHEST)
 
     px, py, pz, pw = _project_rows(vp_rows, world_pos)
     w_ok = jnp.abs(pw) >= 1e-8
@@ -940,9 +931,8 @@ def local_shadow_vis_stack(sh: LocalShadowMaps, world_pos, normal):
     first), PCF-compare biased NDC01 depth, then mix(1, vis, strength).
     Channel K is constant 1.0 so unshadowed lights can index it.
 
-    All planes of a stack evaluate through ONE batched gather (TPU gather
-    cost is per-row bound; per-plane gathers cost K table scans and K
-    dispatches for the same row count).
+    All planes of a stack evaluate through ONE batched gather (per-plane
+    gathers cost K table scans and K dispatches for the same row count).
 
     When sh.vis_scale > 1, planes are evaluated on a vis_scale-strided
     pixel grid and bilinearly upsampled (perf knob; PARITY.md).
@@ -956,31 +946,14 @@ def local_shadow_vis_stack(sh: LocalShadowMaps, world_pos, normal):
     return stack
 
 
-def local_shadow_vis_planes(sh: LocalShadowMaps, world_pos, normal):
-    """Plane-major variant of local_shadow_vis_stack: (K+1, H, W).
-
-    The fused resolve kernel consumes visibility planes as leading-axis
-    VMEM blocks; stacking on axis 0 here avoids the (H, W, K+1) ->
-    (K+1, H, W) transpose a channel-last stack would cost (the round-2
-    lesson from the record planes, ARCHITECTURE.md section 6)."""
-    planes = _vis_planes_list(sh, world_pos, normal)
-    stack = jnp.stack(planes, axis=0)
-    sc = max(1, int(sh.vis_scale))
-    if sc > 1:
-        stack = jax.image.resize(
-            stack, (stack.shape[0],) + world_pos.shape[:-1], "bilinear")
-    return stack
-
-
 def _scaled_crop_sizes(vis_crop, sc: int) -> tuple:
     """Crop cascade re-denominated for a vis_scale-strided grid.
 
     vis_crop levels are sized in FULL-res pixels (default_vis_crop takes
     the framebuffer dims); the planes evaluate on the (H/sc, W/sc) grid, so
     unscaled levels cover sc^2 x the intended footprint area — at sc=2 the
-    whole 4-level cascade collapses to one near-full-grid window (the r5
-    HEAD ledger measured the vis stack at 33.6 ms because of it).  Each
-    level shrinks by sc, re-rounded to TPU tiles (sublane 8, lane 128).
+    whole 4-level cascade collapses to one near-full-grid window.  Each
+    level shrinks by sc, re-rounded to whole blocks (8 rows, 128 columns).
     Exact either way: _cropped_plane fit-checks against the actual
     footprint on the eval grid and falls through to the next level."""
     sizes = _crop_sizes(vis_crop)

@@ -1,17 +1,20 @@
-"""Fused shading kernel: sun BRDF + binned local lights in ONE Pallas pass.
+"""Local-light shading kernel: binned local lights in ONE Pallas pass
+(Triton route).
 
-Extends the forward+ accumulation kernel with the per-pixel sun term
-(Blinn-Phong or Cook-Torrance, exactly the shading/models.py math), so the
-lit color needs a single kernel launch instead of (sun pass + light pass +
-combine).  Ambient (fake-IBL / real IBL) and emissive stay outside: they are
-cheap XLA elementwise (+ cubemap gathers the kernel cannot do).
+One program shades one light-binning tile (tile_size x tile_size pixels):
+it reads the G-buffer block in its natural (H, W, C) layout, walks its own
+light list, loading each light's packed record by index, and accumulates
+albedo-modulated diffuse plus specular in registers.  The sun, ambient and
+emissive terms stay in XLA (passes/forward_plus.py): they are per-pixel
+elementwise work that XLA fuses, and sharing them keeps this path equal to
+the plain one up to the order of the light sum.
 
-G-buffer channel layout (16, TH, TW):
-  0:3 world_pos | 3:6 normal | 6 covered | 7:10 albedo | 10 metallic |
-  11 roughness | 12 sun shadow visibility | 13:16 pad
+The light lists are the XLA path's own (cull_lights_tiled /
+cull_lights_clustered at the same tile size and cap), so both paths shade
+every pixel with the same lights.
 
-Uniform row (1, 128): 0:3 camera_pos | 3:6 sun dir (toward scene) |
-  6:9 sun radiance (color * intensity)
+Per-pixel inputs: world_pos (H,W,3) | normal (H,W,3) | albedo (H,W,3) |
+covered (H,W) f32.
 """
 
 from __future__ import annotations
@@ -21,9 +24,10 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from lsr_tpu.lighting.fplus_kernel import _cdiv
+from lsr_tpu.core.device import kernel_interpret
+from lsr_tpu.core.util import cdiv
 from lsr_tpu.lighting.light_culling import cull_lights_tiled
 from lsr_tpu.lighting.light_runtime import pack_light_records
 from lsr_tpu.lighting.light_types import (
@@ -31,488 +35,281 @@ from lsr_tpu.lighting.light_types import (
     LIGHT_SPOT,
     LIGHT_TUBE_AREA,
 )
-from lsr_tpu.raster.tiled import default_interpret
 
-_PI = 3.14159265358979
 _HALF_PI = 1.5707963267948966
 
 
-def _shade_kernel(
-    counts_ref, vflags_ref, z_ref, rec_ref, gb_ref, out_ref,
-    *, chunk: int, tiles_x: int, sun_model: str, n_vis: int = 0,
-    slices: int = 0, fastmath: tuple = (), light_kinds: tuple | None = None,
-):
+def _shade_kernel(p_ref, cnt_ref, lst_ref, lrec_ref, wp_ref, n_ref, alb_ref,
+                  cov_ref, *rest, cap: int, tiles_x: int, n_vis: int,
+                  slices: int, unit_pow: bool, light_kinds: tuple | None):
     # Static light-type specialization: when the caller knows the scene's
-    # light-type set at trace time (light_kinds), math for ABSENT types is
-    # skipped entirely — bit-exact, because the where-chains below would
-    # select the same operands with all-False conditions.  The flagship
-    # scene is spot+point only; the rect/tube projections are ~25 full-tile
-    # VPU ops per light chunk that it never uses.
+    # light-type set at trace time, math for ABSENT types is skipped — the
+    # where-chains below would select the same operands with all-False
+    # conditions, so the result is bit-identical.
     has_spot = light_kinds is None or LIGHT_SPOT in light_kinds
     has_rect = light_kinds is None or LIGHT_RECT_AREA in light_kinds
     has_tube = light_kinds is None or LIGHT_TUBE_AREA in light_kinds
-    tyi = pl.program_id(0)
-    txi = pl.program_id(1)
-    t_lin0 = tyi * tiles_x + txi
-    count = counts_ref[t_lin0 * slices] if slices else counts_ref[t_lin0]
+    rest = list(rest)
+    out_ref = rest.pop()
+    vis_ref = rest.pop(0) if n_vis else None
+    slice_ref = rest.pop(0) if slices else None
 
-    px, py, pz = gb_ref[0], gb_ref[1], gb_ref[2]
-    nx, ny, nz = gb_ref[3], gb_ref[4], gb_ref[5]
-    covered = gb_ref[6] > 0.0
-    ar, ag, ab = gb_ref[7], gb_ref[8], gb_ref[9]
-    metal = jnp.clip(gb_ref[10], 0.0, 1.0)
-    rough = gb_ref[11]
-    sun_vis = gb_ref[12]
+    t_lin = pl.program_id(0) * tiles_x + pl.program_id(1)
+    px, py, pz = wp_ref[:, :, 0], wp_ref[:, :, 1], wp_ref[:, :, 2]
+    nx, ny, nz = n_ref[:, :, 0], n_ref[:, :, 1], n_ref[:, :, 2]
+    covered = cov_ref[...] > 0.0
 
-    cx, cy, cz = z_ref[0, 0], z_ref[0, 1], z_ref[0, 2]
-    sdx, sdy, sdz = z_ref[0, 3], z_ref[0, 4], z_ref[0, 5]
-    srr, srg, srb = z_ref[0, 6], z_ref[0, 7], z_ref[0, 8]
-
-    vx = cx - px
-    vy = cy - py
-    vz = cz - pz
+    vx, vy, vz = p_ref[0] - px, p_ref[1] - py, p_ref[2] - pz
     vl = jax.lax.rsqrt(jnp.maximum(vx * vx + vy * vy + vz * vz, 1e-16))
     vx, vy, vz = vx * vl, vy * vl, vz * vl
 
-    # --- sun term (L = -sun_dir, normalized outside) ------------------------
-    lx, ly, lz = -sdx, -sdy, -sdz
-    hx, hy, hz = lx + vx, ly + vy, lz + vz
-    hl = jax.lax.rsqrt(jnp.maximum(hx * hx + hy * hy + hz * hz, 1e-16))
-    hx, hy, hz = hx * hl, hy * hl, hz * hl
-    ndl = jnp.maximum(nx * lx + ny * ly + nz * lz, 0.0)
-    ndh = jnp.maximum(nx * hx + ny * hy + nz * hz, 0.0)
-    ndv = jnp.maximum(nx * vx + ny * vy + nz * vz, 0.0)
+    def unit3(a_, b_, c_):
+        il = jax.lax.rsqrt(jnp.maximum(a_ * a_ + b_ * b_ + c_ * c_, 1e-16))
+        return a_ * il, b_ * il, c_ * il
 
-    if sun_model == "blinn_phong":
-        rough_c = jnp.clip(rough, 0.0, 1.0)
-        spec_pow = jnp.maximum(4.0, 8.0 + (1.0 - rough_c) * 120.0)
-        spec_norm = (spec_pow + 2.0) / (2.0 * _PI)
-        spec_f0 = 0.04 + 0.96 * metal
-        spec = jnp.power(jnp.maximum(ndh, 1e-9), spec_pow) * spec_norm \
-            * spec_f0 * ndl
-        kd = 1.0 - metal
-        base = kd * (ndl / _PI)
-        dr = (base * ar + spec) * srr
-        dg = (base * ag + spec) * srg
-        db_ = (base * ab + spec) * srb
-    else:  # pbr_mr (Cook-Torrance GGX, shading/models.py:shade_pbr_mr)
-        rough_c = jnp.clip(rough, 0.04, 1.0)
-        f0r = 0.04 + (ar - 0.04) * metal
-        f0g = 0.04 + (ag - 0.04) * metal
-        f0b = 0.04 + (ab - 0.04) * metal
-        a = rough_c * rough_c
-        a2 = a * a
-        dden = ndh * ndh * (a2 - 1.0) + 1.0
-        d = a2 / (_PI * dden * dden + 1e-7)
-        k = (a + 1.0) * (a + 1.0) * 0.125
-        g1v = ndv / (ndv * (1.0 - k) + k + 1e-7)
-        g1l = ndl / (ndl * (1.0 - k) + k + 1e-7)
-        g = g1v * g1l
-        vdh = jnp.maximum(vx * hx + vy * hy + vz * hz, 0.0)
-        fres = jnp.power(1.0 - vdh, 5.0)
-        fr = f0r + (1.0 - f0r) * fres
-        fg = f0g + (1.0 - f0g) * fres
-        fb = f0b + (1.0 - f0b) * fres
-        denom_s = jnp.maximum(4.0 * ndl * ndv, 1e-6)
-        sr_ = d * g * fr / denom_s
-        sg_ = d * g * fg / denom_s
-        sb_ = d * g * fb / denom_s
-        inv_pi = 1.0 / _PI
-        kdr = (1.0 - fr) * (1.0 - metal)
-        kdg = (1.0 - fg) * (1.0 - metal)
-        kdb = (1.0 - fb) * (1.0 - metal)
-        lit = ((ndl > 0.0) & (ndv > 0.0)).astype(jnp.float32)
-        dr = (kdr * ar * inv_pi + sr_) * srr * ndl * lit
-        dg = (kdg * ag * inv_pi + sg_) * srg * ndl * lit
-        db_ = (kdb * ab * inv_pi + sb_) * srb * ndl * lit
-
-    dr = dr * sun_vis
-    dg = dg * sun_vis
-    db_ = db_ * sun_vis
-
-    # --- local lights (same walk as _fplus_kernel) --------------------------
-    shape = px.shape
-    zero = jnp.zeros(shape, jnp.float32)
-
-    slice_plane = gb_ref[16 + n_vis] if slices else None
-
-    def chunk_body(ci, carry, list_base=0, slice_id=None):
+    def light_body(lid, carry, slice_mask=None):
         ldr_, ldg, ldb, lsr, lsg, lsb = carry
-        base = list_base + pl.multiple_of(ci * chunk, chunk)
-        blk = rec_ref[0, pl.ds(base, chunk), :]
 
         def f(j):
-            return blk[:, j].reshape(chunk, 1, 1)
+            return lrec_ref[lid, j]
 
         ltype = f(0)
         posx, posy, posz = f(1), f(2), f(3)
-
-        def unit3(a_, b_, c_):
-            il = jax.lax.rsqrt(jnp.maximum(a_ * a_ + b_ * b_ + c_ * c_, 1e-16))
-            return a_ * il, b_ * il, c_ * il
-
         if has_spot or has_rect:
             fwdx, fwdy, fwdz = unit3(f(4), f(5), f(6))
-        if has_rect:
-            upx, upy, upz = unit3(f(7), f(8), f(9))
-        if has_tube:
-            axx, axy, axz = unit3(f(10), f(11), f(12))
-        colr, colg, colb = f(13), f(14), f(15)
-        intensity = f(16)
         rng = jnp.maximum(f(17), 0.001)
-        inner = jnp.clip(f(18), 0.02, _HALF_PI - 0.02)
-        outer = jnp.clip(jnp.maximum(inner + 0.005, f(19)), inner + 0.005,
-                         _HALF_PI - 0.005)
-        hex_, hey = jnp.maximum(f(20), 0.05), jnp.maximum(f(21), 0.05)
-        thl = jnp.maximum(f(22), 0.1)
-        amodel = f(24)
-        apow = jnp.maximum(f(25), 0.001)
-        abias = jnp.maximum(f(26), 1e-5)
-        acut = f(27)
+        # Type tests as full tiles: every select below is then tile-shaped
+        # (the Triton lowering does not broadcast scalar predicates).
+        is_spot = jnp.broadcast_to(ltype == float(LIGHT_SPOT), px.shape)
+        is_rect = jnp.broadcast_to(ltype == float(LIGHT_RECT_AREA), px.shape)
+        is_tube = jnp.broadcast_to(ltype == float(LIGHT_TUBE_AREA), px.shape)
 
-        is_spot = ltype == float(LIGHT_SPOT)
-        is_rect = ltype == float(LIGHT_RECT_AREA)
-        is_tube = ltype == float(LIGHT_TUBE_AREA)
-
-        if has_rect or has_tube:
-            dxp = px[None] - posx
-            dyp = py[None] - posy
-            dzp = pz[None] - posz
         emx, emy, emz = posx, posy, posz
         if has_rect:
-            rx0 = upy * fwdz - upz * fwdy
-            ry0 = upz * fwdx - upx * fwdz
-            rz0 = upx * fwdy - upy * fwdx
-            rx0, ry0, rz0 = unit3(rx0, ry0, rz0)
-            u2x = fwdy * rz0 - fwdz * ry0
-            u2y = fwdz * rx0 - fwdx * rz0
-            u2z = fwdx * ry0 - fwdy * rx0
-            u2x, u2y, u2z = unit3(u2x, u2y, u2z)
-            rx = u2y * fwdz - u2z * fwdy
-            ry = u2z * fwdx - u2x * fwdz
-            rz = u2x * fwdy - u2y * fwdx
-            rx, ry, rz = unit3(rx, ry, rz)
+            upx, upy, upz = unit3(f(7), f(8), f(9))
+            rx0, ry0, rz0 = unit3(upy * fwdz - upz * fwdy,
+                                  upz * fwdx - upx * fwdz,
+                                  upx * fwdy - upy * fwdx)
+            u2x, u2y, u2z = unit3(fwdy * rz0 - fwdz * ry0,
+                                  fwdz * rx0 - fwdx * rz0,
+                                  fwdx * ry0 - fwdy * rx0)
+            rx, ry, rz = unit3(u2y * fwdz - u2z * fwdy,
+                               u2z * fwdx - u2x * fwdz,
+                               u2x * fwdy - u2y * fwdx)
+            hex_, hey = jnp.maximum(f(20), 0.05), jnp.maximum(f(21), 0.05)
+            dxp, dyp, dzp = px - posx, py - posy, pz - posz
             ux = jnp.clip(dxp * rx + dyp * ry + dzp * rz, -hex_, hex_)
             uy = jnp.clip(dxp * u2x + dyp * u2y + dzp * u2z, -hey, hey)
-            rectx = posx + rx * ux + u2x * uy
-            recty = posy + ry * ux + u2y * uy
-            rectz = posz + rz * ux + u2z * uy
-            emx = jnp.where(is_rect, rectx, emx)
-            emy = jnp.where(is_rect, recty, emy)
-            emz = jnp.where(is_rect, rectz, emz)
-
+            emx = jnp.where(is_rect, posx + rx * ux + u2x * uy, emx)
+            emy = jnp.where(is_rect, posy + ry * ux + u2y * uy, emy)
+            emz = jnp.where(is_rect, posz + rz * ux + u2z * uy, emz)
         if has_tube:
-            ax2 = axx * (2.0 * thl)
-            ay2 = axy * (2.0 * thl)
-            az2 = axz * (2.0 * thl)
-            a0x = posx - axx * thl
-            a0y = posy - axy * thl
-            a0z = posz - axz * thl
+            axx, axy, axz = unit3(f(10), f(11), f(12))
+            thl = jnp.maximum(f(22), 0.1)
+            ax2, ay2, az2 = axx * (2.0 * thl), axy * (2.0 * thl), axz * (2.0 * thl)
+            a0x, a0y, a0z = posx - axx * thl, posy - axy * thl, posz - axz * thl
             denom_seg = jnp.maximum(ax2 * ax2 + ay2 * ay2 + az2 * az2, 1e-8)
-            tseg = jnp.clip(
-                ((px[None] - a0x) * ax2 + (py[None] - a0y) * ay2
-                 + (pz[None] - a0z) * az2) / denom_seg, 0.0, 1.0)
-            tubex = a0x + ax2 * tseg
-            tubey = a0y + ay2 * tseg
-            tubez = a0z + az2 * tseg
-            emx = jnp.where(is_tube, tubex, emx)
-            emy = jnp.where(is_tube, tubey, emy)
-            emz = jnp.where(is_tube, tubez, emz)
+            tseg = jnp.clip(((px - a0x) * ax2 + (py - a0y) * ay2
+                             + (pz - a0z) * az2) / denom_seg, 0.0, 1.0)
+            emx = jnp.where(is_tube, a0x + ax2 * tseg, emx)
+            emy = jnp.where(is_tube, a0y + ay2 * tseg, emy)
+            emz = jnp.where(is_tube, a0z + az2 * tseg, emz)
 
-        tlx = emx - px[None]
-        tly = emy - py[None]
-        tlz = emz - pz[None]
+        tlx, tly, tlz = emx - px, emy - py, emz - pz
         dist = jnp.sqrt(jnp.maximum(tlx * tlx + tly * tly + tlz * tlz, 1e-16))
         inv_d = 1.0 / dist
         llx, lly, llz = tlx * inv_d, tly * inv_d, tlz * inv_d
 
         shaping = 1.0
+        spec_pw, spec_sc = 36.0, 0.30
         if has_spot:
+            inner = jnp.clip(f(18), 0.02, _HALF_PI - 0.02)
+            outer = jnp.clip(jnp.maximum(inner + 0.005, f(19)),
+                             inner + 0.005, _HALF_PI - 0.005)
+            cin, cout = jnp.cos(inner), jnp.cos(outer)
             cos_t = -(llx * fwdx + lly * fwdy + llz * fwdz)
-            cin = jnp.cos(inner)
-            cout = jnp.cos(outer)
             tt = jnp.clip((cos_t - cout) / jnp.maximum(cin - cout, 1e-5),
                           0.0, 1.0)
-            spot_shape = jnp.where(cos_t > cout,
-                                   tt * tt * (3.0 - 2.0 * tt), 0.0)
-            shaping = jnp.where(is_spot, spot_shape, shaping)
+            shaping = jnp.where(
+                is_spot, jnp.where(cos_t > cout, tt * tt * (3.0 - 2.0 * tt),
+                                   0.0), shaping)
+            spec_pw = jnp.where(is_spot, 34.0, spec_pw)
+            spec_sc = jnp.where(is_spot, 0.32, spec_sc)
         if has_rect:
-            facing = jnp.maximum(-(fwdx * llx + fwdy * lly + fwdz * llz),
-                                 0.0)
-            rect_shape = jnp.where(facing > 0.0, 0.65 + 0.55 * facing, 0.0)
-            shaping = jnp.where(is_rect, rect_shape, shaping)
-        if has_tube:
-            soft = jnp.clip(1.0 - dist / rng, 0.0, 1.0)
-            tube_shape = 0.75 + 0.35 * soft
-            shaping = jnp.where(is_tube, tube_shape, shaping)
-        spec_pw = jnp.where(is_spot, 34.0, 36.0) if has_spot else 36.0
-        spec_sc = jnp.where(is_spot, 0.32, 0.30) if has_spot else 0.30
-        if has_rect:
+            facing = jnp.maximum(-(fwdx * llx + fwdy * lly + fwdz * llz), 0.0)
+            shaping = jnp.where(
+                is_rect, jnp.where(facing > 0.0, 0.65 + 0.55 * facing, 0.0),
+                shaping)
             spec_pw = jnp.where(is_rect, 26.0, spec_pw)
             spec_sc = jnp.where(is_rect, 0.26, spec_sc)
         if has_tube:
+            soft = jnp.clip(1.0 - dist / rng, 0.0, 1.0)
+            shaping = jnp.where(is_tube, 0.75 + 0.35 * soft, shaping)
             spec_pw = jnp.where(is_tube, 22.0, spec_pw)
             spec_sc = jnp.where(is_tube, 0.20, spec_sc)
 
+        amodel = f(24)
         norm = jnp.clip(1.0 - dist / rng, 0.0, 1.0)
         smooth = norm * norm * (3.0 - 2.0 * norm)
-        invsq = jnp.minimum(1.0, (rng * rng) / jnp.maximum(dist * dist, abias)) \
-            * norm * norm
+        invsq = jnp.minimum(1.0, (rng * rng) / jnp.maximum(
+            dist * dist, jnp.maximum(f(26), 1e-5))) * norm * norm
         fall = jnp.where(amodel == 0.0, norm,
                          jnp.where(amodel == 1.0, smooth, invsq))
-        if "apow1" not in fastmath:
-            # Measurement knob (dbg_shade): every scene-builder default is
-            # atten_power=1, where this transcendental is an identity.
-            fall = jnp.power(jnp.maximum(fall, 1e-9), apow)
+        if not unit_pow:
+            # Skipped when every light's atten_power is 1 (pow(x, 1) = x).
+            fall = jnp.power(jnp.maximum(fall, 1e-9),
+                             jnp.maximum(f(25), 0.001))
+        acut = f(27)
         fall = jnp.where((acut > 0.0) & (fall < acut), 0.0, fall)
         atten = jnp.where(dist < rng, fall, 0.0) * jnp.maximum(shaping, 0.0)
 
-        lndl = jnp.maximum(nx[None] * llx + ny[None] * lly + nz[None] * llz, 0.0)
-        live = (dist > 1e-4) & (lndl > 0.0) & (atten > 0.0) & covered[None]
-        gain = jnp.where(live, intensity * atten, 0.0)
-        if n_vis > 0:
+        lndl = jnp.maximum(nx * llx + ny * lly + nz * llz, 0.0)
+        live = (dist > 1e-4) & (lndl > 0.0) & (atten > 0.0) & covered
+        if slice_mask is not None:
+            live = live & slice_mask
+        gain = jnp.where(live, f(16) * atten, 0.0)
+        if n_vis:
             # Local shadow maps: record lane 28 is the light's visibility
-            # plane index (eval_local_shadow multiply,
-            # fp_stress_scene.frag:520); plane n_vis-1 is constant 1.0 for
-            # unshadowed lights, so the one-hot sum is exact.  Shadowed
-            # lights are few (<=10 of 256) and sit in the first chunks of
-            # each tile list, so a per-chunk prefetch flag skips the
-            # (n_vis)-plane select on chunks with no shadowed light —
-            # bit-exact (their lvis would be the constant-1 plane).
-            n_slots = rec_ref.shape[1] // chunk
-            slot = (list_base // chunk) + ci
-            vflag = vflags_ref[t_lin0 * n_slots + slot]
-            sidx = f(28)
+            # plane (eval_local_shadow multiply, fp_stress_scene.frag:520);
+            # plane n_vis-1 is the constant 1.0 of unshadowed lights.
+            sidx = f(28).astype(jnp.int32)
+            gain = jax.lax.cond(sidx < n_vis - 1,
+                                lambda g: g * vis_ref[:, :, sidx],
+                                lambda g: g, gain)
 
-            def with_vis(g):
-                lvis = zero[None]
-                for k in range(n_vis):
-                    lvis = lvis + jnp.where(sidx == float(k),
-                                            gb_ref[16 + k], 0.0)
-                return g * lvis
-
-            gain = jax.lax.cond(vflag > 0, with_vis, lambda g: g, gain)
-        if slice_id is not None:
-            # Clustered mode: this chunk belongs to cluster slice
-            # `slice_id`; only pixels whose log-Z slice matches take it
-            # (view_depth_to_cluster_slice semantics).
-            gain = gain * (slice_plane == slice_id.astype(jnp.float32))[None]
-
-        hxl = llx + vx[None]
-        hyl = lly + vy[None]
-        hzl = llz + vz[None]
-        hll = jax.lax.rsqrt(jnp.maximum(hxl * hxl + hyl * hyl + hzl * hzl, 1e-16))
-        lndh = jnp.maximum(nx[None] * (hxl * hll) + ny[None] * (hyl * hll)
-                           + nz[None] * (hzl * hll), 0.0)
-        if "nospec_pow" in fastmath:
-            # Measurement-only (WRONG output): bounds the local-specular
-            # pow's share of kernel time.
-            spec = spec_sc * lndh
-        else:
-            spec = spec_sc * jnp.power(jnp.maximum(lndh, 1e-9), spec_pw)
-
+        hxl, hyl, hzl = llx + vx, lly + vy, llz + vz
+        hll = jax.lax.rsqrt(jnp.maximum(hxl * hxl + hyl * hyl + hzl * hzl,
+                                        1e-16))
+        lndh = jnp.maximum(nx * (hxl * hll) + ny * (hyl * hll)
+                           + nz * (hzl * hll), 0.0)
+        spec = spec_sc * jnp.power(jnp.maximum(lndh, 1e-9), spec_pw)
         wd = gain * lndl
         ws = gain * spec
-        ldr_ = ldr_ + jnp.sum(jnp.maximum(colr, 0.0) * wd, axis=0)
-        ldg = ldg + jnp.sum(jnp.maximum(colg, 0.0) * wd, axis=0)
-        ldb = ldb + jnp.sum(jnp.maximum(colb, 0.0) * wd, axis=0)
-        lsr = lsr + jnp.sum(jnp.maximum(colr, 0.0) * ws, axis=0)
-        lsg = lsg + jnp.sum(jnp.maximum(colg, 0.0) * ws, axis=0)
-        lsb = lsb + jnp.sum(jnp.maximum(colb, 0.0) * ws, axis=0)
-        return ldr_, ldg, ldb, lsr, lsg, lsb
+        cr = jnp.maximum(f(13), 0.0)
+        cg = jnp.maximum(f(14), 0.0)
+        cb = jnp.maximum(f(15), 0.0)
+        return (ldr_ + cr * wd, ldg + cg * wd, ldb + cb * wd,
+                lsr + cr * ws, lsg + cg * ws, lsb + cb * ws)
 
-    init6 = (zero, zero, zero, zero, zero, zero)
+    def walk(bin_idx, carry, slice_mask=None):
+        n = jnp.minimum(cnt_ref[bin_idx], cap)
+        return jax.lax.fori_loop(
+            0, n, lambda k, c: light_body(lst_ref[bin_idx * cap + k], c,
+                                          slice_mask), carry)
+
+    zero = jnp.zeros_like(px)
+    acc = (zero,) * 6
     if slices:
-        # Per-(tile, slice) lists laid out contiguously: walk each slice's
-        # list with its own trip count, masking pixels by their slice.
-        cap = rec_ref.shape[1] // slices
-
-        def slice_body(sl, carry):
-            cnt = counts_ref[t_lin0 * slices + sl]
-            nch = jnp.minimum(pl.cdiv(cnt, chunk), cap // chunk)
-            return jax.lax.fori_loop(
-                0, nch,
-                lambda ci, c: chunk_body(ci, c, list_base=sl * cap,
-                                         slice_id=sl),
-                carry)
-
-        ld_r, ld_g, ld_b, ls_r, ls_g, ls_b = jax.lax.fori_loop(
-            0, slices, slice_body, init6)
+        # Clustered: walk only the slices present among covered pixels,
+        # each pixel taking its own slice's lights
+        # (view_depth_to_cluster_slice semantics).
+        sl = slice_ref[...]
+        s_lo = jnp.min(jnp.min(jnp.where(covered, sl, slices), axis=1),
+                       axis=0)
+        s_hi = jnp.max(jnp.max(jnp.where(covered, sl, -1), axis=1), axis=0)
+        acc = jax.lax.fori_loop(
+            s_lo, s_hi + 1,
+            lambda s, c: walk(t_lin * slices + s, c, slice_mask=sl == s), acc)
     else:
-        cap = rec_ref.shape[1]
-        n_chunks = jnp.minimum(pl.cdiv(count, chunk), cap // chunk)
-        ld_r, ld_g, ld_b, ls_r, ls_g, ls_b = jax.lax.fori_loop(
-            0, n_chunks, chunk_body, init6
-        )
+        acc = walk(t_lin, acc)
+    ld_r, ld_g, ld_b, ls_r, ls_g, ls_b = acc
 
     covf = covered.astype(jnp.float32)
-    out_ref[0] = (dr + ar * ld_r + ls_r) * covf
-    out_ref[1] = (dg + ag * ld_g + ls_g) * covf
-    out_ref[2] = (db_ + ab * ld_b + ls_b) * covf
-    out_ref[3] = zero
-    out_ref[4] = zero
-    out_ref[5] = zero
-    out_ref[6] = zero
-    out_ref[7] = zero
+    out_ref[:, :, 0] = (alb_ref[:, :, 0] * ld_r + ls_r) * covf
+    out_ref[:, :, 1] = (alb_ref[:, :, 1] * ld_g + ls_g) * covf
+    out_ref[:, :, 2] = (alb_ref[:, :, 2] * ld_b + ls_b) * covf
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("width", "height", "tile_h", "tile_w", "cap", "chunk",
-                     "sun_model", "interpret", "slices", "fastmath",
-                     "light_kinds"),
+    static_argnames=("width", "height", "tile_size", "cap", "slices",
+                     "unit_atten_power", "light_kinds"),
 )
-def shade_fused_pallas(
-    gb_world_pos, gb_normal, gb_covered,
-    albedo, metallic, roughness, sun_shadow_vis,
-    camera_pos, sun_dir_ws, sun_radiance,
+def shade_local_lights(
+    gb_world_pos, gb_normal, gb_covered, albedo, camera_pos,
     lights, view, proj,
     width: int, height: int,
-    tile_h: int = 64, tile_w: int = 128,
-    cap: int = 256, chunk: int = 16,
+    tile_size: int = 16,
+    cap: int = 128,
     tile_depth_range=None,
-    sun_model: str = "pbr_mr",
-    interpret: bool | None = None,
     local_vis_stack=None,
     light_shadow_index=None,
     cluster_slice_plane=None,
     slices: int = 0,
     zn=None,
     zf=None,
-    fastmath: tuple = (),
+    unit_atten_power: bool = False,
     light_kinds: tuple | None = None,
 ):
-    """Sun + binned local lighting, fused.  Returns ((H,W,3) lit, bin_stats).
-
-    The result covers direct sun + albedo-modulated local diffuse + local
-    specular, zeroed outside coverage; add ambient/emissive and composite
-    the background outside.
+    """Binned local lighting.  Returns ((H,W,3) lit, bin_stats): albedo *
+    diffuse + specular summed over each pixel's tile list, zero outside
+    coverage (the XLA path's accumulate_local_lights + material combine).
 
     local_vis_stack: optional (H, W, K+1) per-shadowed-light visibility
     planes (lighting/local_shadows.local_shadow_vis_stack; channel K must
-    be 1.0); light_shadow_index: (L,) i32 plane index per light — wires
-    LOCAL shadow maps into the fused kernel's light loop.
+    be 1.0); light_shadow_index: (L,) i32 plane index per light.
 
     cluster_slice_plane + slices>0 switches the light walk to CLUSTERED
-    mode: lists come from cull_lights_clustered (per tile x log-Z slice),
-    the kernel walks each slice's list with its own trip count, and pixels
-    take only their own slice's lights (view_depth_to_cluster_slice
-    semantics) — the clustered-forward preset at kernel speed.
+    mode: lists come from cull_lights_clustered (per tile x log-Z slice) and
+    pixels take only their own slice's lights.
 
-    fastmath: measurement knobs for dbg_shade ("apow1" skips the
-    attenuation pow — identity when every light has atten_power=1;
-    "nospec_pow" replaces the local specular pow with a mul, WRONG output,
-    cost-bounding only).  Production callers leave it ().
+    unit_atten_power: every light has atten_power == 1, so the attenuation
+    pow is skipped.  light_kinds: static set of light types present.
     """
-    if interpret is None:
-        interpret = default_interpret()
-    if cap % chunk:
-        # The per-chunk shadowed-flag slots assume chunk-aligned list
-        # boundaries (slot = list_base//chunk + ci); a non-multiple cap
-        # would silently misalign slots across clustered slices.
-        raise ValueError(f"cap ({cap}) must be a multiple of chunk "
-                         f"({chunk})")
-    tiles_x = _cdiv(width, tile_w)
-    tiles_y = _cdiv(height, tile_h)
-    num_tiles = tiles_x * tiles_y
-    ph, pw = tiles_y * tile_h, tiles_x * tile_w
+    ts = tile_size
+    assert ts & (ts - 1) == 0, "tile_size must be a power of two"
+    tiles_x = cdiv(width, ts)
+    tiles_y = cdiv(height, ts)
+    ph, pw = tiles_y * ts, tiles_x * ts
 
     if slices:
         from lsr_tpu.lighting.light_culling import cull_lights_clustered
 
         lists, counts, bin_stats = cull_lights_clustered(
             lights, view, proj, zn, zf, width, height,
-            tile_size=tile_w, tile_h=tile_h, cap=cap, slices=slices,
-        )                                  # (tiles*slices, cap)
+            tile_size=ts, cap=cap, slices=slices,
+        )
     else:
         lists, counts, bin_stats = cull_lights_tiled(
-            lights, view, proj, width, height,
-            tile_size=tile_w, tile_h=tile_h, cap=cap,
+            lights, view, proj, width, height, tile_size=ts, cap=cap,
             tile_depth_range=tile_depth_range,
         )
     packed = pack_light_records(lights)
-    n_vis_pre = 0 if local_vis_stack is None else local_vis_stack.shape[-1]
     if light_shadow_index is not None:
         packed = packed.at[:, 28].set(light_shadow_index.astype(jnp.float32))
-    from lsr_tpu.core.gather import take_rows
-
-    tile_rec = take_rows(packed, jnp.maximum(lists, 0))
-    tile_rec = jnp.where((lists >= 0)[..., None], tile_rec, 0.0)
-    if n_vis_pre > 0:
-        # Padded entries read as "unshadowed" so the per-chunk shadow
-        # flags below stay exact (a zeroed record would look shadowed).
-        tile_rec = tile_rec.at[..., 28].set(jnp.where(
-            lists >= 0, tile_rec[..., 28], float(n_vis_pre - 1)))
-    if slices:
-        tile_rec = tile_rec.reshape(num_tiles, slices * cap, 32)
-    # Per-(tile, chunk) "contains a shadowed light" prefetch flags.
-    n_slots = tile_rec.shape[1] // chunk
-    if n_vis_pre > 0:
-        vflags = (tile_rec[..., 28] < float(n_vis_pre - 1)).reshape(
-            num_tiles, n_slots, chunk).any(-1).astype(jnp.int32).reshape(-1)
-    else:
-        vflags = jnp.zeros((num_tiles * n_slots,), jnp.int32)
 
     def padp(x):
         return jnp.pad(
-            x, ((0, ph - height), (0, pw - width)) + ((0, 0),) * (x.ndim - 2)
-        )
+            x, ((0, ph - height), (0, pw - width)) + ((0, 0),) * (x.ndim - 2))
 
-    zeros = jnp.zeros((ph, pw), jnp.float32)
-    planes = [
-        padp(gb_world_pos[..., 0]), padp(gb_world_pos[..., 1]),
-        padp(gb_world_pos[..., 2]),
-        padp(gb_normal[..., 0]), padp(gb_normal[..., 1]),
-        padp(gb_normal[..., 2]),
-        padp(gb_covered.astype(jnp.float32)),
-        padp(albedo[..., 0]), padp(albedo[..., 1]), padp(albedo[..., 2]),
-        padp(metallic), padp(roughness), padp(sun_shadow_vis),
-        zeros, zeros, zeros,
-    ]
+    pix = [padp(gb_world_pos), padp(gb_normal), padp(albedo),
+           padp(gb_covered.astype(jnp.float32))]
     n_vis = 0
     if local_vis_stack is not None:
         n_vis = local_vis_stack.shape[-1]
-        for k in range(n_vis):
-            planes.append(padp(local_vis_stack[..., k]))
+        pix.append(padp(local_vis_stack))
     if slices:
-        planes.append(padp(cluster_slice_plane.astype(jnp.float32)))
-    if len(planes) % 8 != 0:
-        planes.extend([zeros] * (8 - len(planes) % 8))
-    gbuf = jnp.stack(planes)  # (16 [+vis planes, padded to x8], ph, pw)
-    n_gb = gbuf.shape[0]
+        pix.append(padp(cluster_slice_plane.astype(jnp.int32)))
 
-    sd = sun_dir_ws / jnp.maximum(jnp.linalg.norm(sun_dir_ws), 1e-8)
-    zparams = jnp.zeros((1, 128), jnp.float32)
-    zparams = zparams.at[0, :3].set(camera_pos.astype(jnp.float32))
-    zparams = zparams.at[0, 3:6].set(sd.astype(jnp.float32))
-    zparams = zparams.at[0, 6:9].set(sun_radiance.astype(jnp.float32))
+    def block(x):
+        if x.ndim == 2:
+            return pl.BlockSpec((ts, ts), lambda i, j: (i, j))
+        return pl.BlockSpec((ts, ts, x.shape[-1]), lambda i, j: (i, j, 0))
 
-    kern = functools.partial(_shade_kernel, chunk=chunk, tiles_x=tiles_x,
-                             sun_model=sun_model, n_vis=n_vis, slices=slices,
-                             fastmath=fastmath, light_kinds=light_kinds)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(tiles_y, tiles_x),
-        in_specs=[
-            pl.BlockSpec((1, 128), lambda i, j, c, v: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, (slices or 1) * cap, 32),
-                         lambda i, j, c, v: (i * tiles_x + j, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_gb, tile_h, tile_w),
-                         lambda i, j, c, v: (0, i, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, tile_h, tile_w),
-                               lambda i, j, c, v: (0, i, j),
-                               memory_space=pltpu.VMEM),
-    )
+    whole = pl.BlockSpec(None, None)
+    kern = functools.partial(
+        _shade_kernel, cap=cap, tiles_x=tiles_x, n_vis=n_vis, slices=slices,
+        unit_pow=unit_atten_power, light_kinds=light_kinds)
     out = pl.pallas_call(
         kern,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((8, ph, pw), jnp.float32),
-        interpret=interpret,
-    )(counts, vflags, zparams, tile_rec, gbuf)
-
-    lit = jnp.moveaxis(out[0:3, :height, :width], 0, -1)
-    return lit, bin_stats
+        grid=(tiles_y, tiles_x),
+        in_specs=[whole] * 4 + [block(x) for x in pix],
+        out_specs=pl.BlockSpec((ts, ts, 3), lambda i, j: (i, j, 0)),
+        out_shape=jax.ShapeDtypeStruct((ph, pw, 3), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=2, num_stages=1),
+        backend="triton",
+        interpret=kernel_interpret(),
+        name="lsr_shade",
+    )(jnp.pad(camera_pos.astype(jnp.float32), (0, 1)), counts,
+      lists.reshape(-1), packed, *pix)
+    return out[:height, :width], bin_stats

@@ -43,15 +43,15 @@ class ShadowContext:
     esm_c: float = 80.0          # ESM sharpness exponent
 
 
-# Whole-frame fusion knob (A/B'd on hardware by scripts/dbg_frame.py).
+# Whole-frame fusion knob: materialize tap-table slices before gathering.
 TAPS_BARRIER = True
 
 # Quantize packed tap tables to u16 pairs in u32 lanes: 4x smaller table
-# bytes and half the gather lanes.  The gather ROW RATE is table-size-bound
-# (memory/tpu-gather-cost-model), so shrinking the table is the main vis
-# lever left; the 1/65535 depth quantum is ~130x below the smallest shadow
-# bias in use (2e-3), so the lit-fraction change is confined to taps within
-# one quantum of the biased test depth.  A/B'd on hardware (dbg_vis2.py).
+# bytes and half the gather lanes.  The gather's row rate falls as the
+# table grows, so shrinking the table is the main visibility lever; the
+# 1/65535 depth quantum is ~130x below the smallest shadow bias in use
+# (2e-3), so the lit-fraction change is confined to taps within one
+# quantum of the biased test depth.
 TAPS_U16 = True
 
 
@@ -110,18 +110,18 @@ def count_lit(window, z_test, mask):
 def pack_shadow_taps(depth, radius: int, stride: int = 8):
     """(S, S) -> ((S/stride)^2, (stride+2r)^2) strided anchor windows.
 
-    ONE wide row gather is the only fast PCF formulation on TPU, but its
-    cost scales with the TABLE size (measured at 2M pixels: 10MB table
-    ~12ms, 420MB ~85ms — the per-texel (S*S, 25) form is the slow one).
-    Packing one window per `stride`-aligned ANCHOR shrinks the table by
+    ONE wide row gather per pixel fetches the whole PCF window, but its
+    cost scales with the TABLE size (the per-texel (S*S, 25) form is the
+    slow one).  Packing one window per `stride`-aligned ANCHOR shrinks the
+    table by
     stride^2 while still covering every pixel's full clamped (2r+1)^2
     window: a pixel at (cy, cx) uses anchor (cy//stride, cx//stride), whose
     window spans [A*stride - r, A*stride + stride-1 + r] — lane
     (ry + dy + r, rx + dx + r) with (ry, rx) = (cy, cx) % stride holds
     exactly the clamped texel (cy+dy, cx+dx).  For 2048^2 at r=2: stride 4
-    = 67MB, stride 8 = 38MB instead of 420MB (measured best total at 1080p:
-    stride 8 -> pack 8.8ms + visibility 14.2ms vs per-texel 6ms + 85ms).  Packing is stride^2-subsampled shifted copies
-    (VPU/HBM friendly), rebuilt once per shadow-map render."""
+    = 67MB, stride 8 = 38MB instead of 420MB.  Packing is stride^2-subsampled
+    shifted copies (dense elementwise work), rebuilt once per shadow-map
+    render."""
     if 2 * radius > stride:
         raise ValueError("pack_shadow_taps needs 2*radius <= stride so a "
                          "window spans at most 2 blocks per axis")
@@ -158,12 +158,12 @@ def prefilter_esm(depth, radius: int, c: float = 80.0):
 
     soft(y, x) = ln(mean over the clamped (2r+1)^2 window of exp(c*z)) / c,
     computed as exp((z-1)*c) so every operand stays in [e^-c, 1] (no f32
-    overflow for any c; c <= ~85 keeps e^-c normal, avoiding TPU
+    overflow for any c; c <= ~85 keeps e^-c normal, avoiding
     flush-to-zero of subnormals).  The box window + edge clamping match the
     PCF footprint exactly (shadow_sample.hpp:65 clamps per-tap coords; an
     edge-padded blur is the same operator), so ESM visibility
     clamp(exp(c*(soft - z_test))) converges to the PCF box average as
-    c -> inf.  Separable: two unrolled (2r+1)-tap passes of dense VPU adds
+    c -> inf.  Separable: two unrolled (2r+1)-tap passes of dense adds
     — NO gathers, which is the point: sampling becomes one 1-lane fetch
     per (pixel, light) instead of a win^2-lane window gather
     (ARCHITECTURE.md round-4 ledger; the round-3 gather-floor finding).
@@ -264,9 +264,9 @@ def shadow_visibility_dir(shadow: ShadowContext, world_pos, ndotl):
     sm = shadow.depth
     sh, sw = sm.shape
 
-    # Lane-arithmetic projection: (H,W,4)@(4,4) dot_general is demoted to
-    # bf16 inputs by default on TPU (~0.4% uv error = ~8 texels at 2048),
-    # and explicit FMAs keep full f32 on the VPU anyway.
+    # Explicit-FMA projection: an (H,W,4)@(4,4) dot_general may run at
+    # reduced precision by default (TF32 would move uvs by texels at
+    # 2048^2); the FMAs keep full f32.
     m = shadow.light_viewproj
     px_, py_, pz_ = world_pos[..., 0], world_pos[..., 1], world_pos[..., 2]
 

@@ -1,7 +1,7 @@
 """Multi-chip scaling: device meshes + sharded render steps.
 
 The reference is single-process (SURVEY.md §2.3); its scaling axes are screen
-tiles and job workers.  On TPU the natural multi-chip axes are:
+tiles and job workers.  Across devices the natural axes are:
 
 - **dp** (data parallel): independent frames/cameras/views per device — the
   renderer analog of batch parallelism (e.g. cubemap faces, stereo eyes,
@@ -50,6 +50,27 @@ def make_mesh(n_devices: int, dp: int | None = None, devices=None) -> Mesh:
     return Mesh(arr, axis_names=("dp", "sp"))
 
 
+def _band_window(band_h: int, tile_size: int) -> int:
+    """Light-tile rows of the window a row band shades.
+
+    A band of whole light tiles shades exactly its rows.  A band that is
+    not (1080 rows in 4 bands of 270 with 16-px tiles) shades the
+    tile-aligned window around it and keeps its own rows, so every pixel
+    sees the same tile list as in the unsharded frame."""
+    extra = tile_size - 1 if band_h % tile_size else 0
+    return -(-(band_h + extra) // tile_size)
+
+
+def _window_lists(lists, tiles_x: int, ty0, n_rows: int):
+    """Rows [ty0, ty0 + n_rows) of a (tiles, cap) tile-list table; rows past
+    the frame are empty (-1)."""
+    rows = lists.reshape(-1, tiles_x, lists.shape[-1])
+    rows = jnp.concatenate(
+        [rows, jnp.full((n_rows,) + rows.shape[1:], -1, rows.dtype)])
+    win = jax.lax.dynamic_slice_in_dim(rows, ty0, n_rows, axis=0)
+    return win.reshape(n_rows * tiles_x, -1)
+
+
 def render_band(geom, objects, viewproj, zn, zf, shade_ctx,
                 width, height, band_h, y_offset,
                 model_name="blinn_phong", background=(0.04, 0.06, 0.1),
@@ -92,13 +113,13 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
     (hello_rendering_paths.cpp:8360 frame structure):
 
     - The 2048^2-class sun shadow map is itself rendered in sp ROW BANDS and
-      assembled with ONE `lax.all_gather` over the "sp" axis (ICI), because
+      assembled with ONE `lax.all_gather` over the "sp" axis, because
       every band's PCF sampling needs the full map.
     - The LOCAL SHADOW ATLAS (8 spot + 2 point x 6 faces,
       hello_rendering_paths.cpp:104-109) shards its SLOTS over "sp": each
       rank depth-renders + packs its slice of the slot stack, and one
       `lax.all_gather` per stack assembles the tap tables everywhere —
-      model parallelism over ICI for the shadow workload.
+      model parallelism for the shadow workload.
     - Per-frame scene culling (frustum + software occlusion at proxy
       resolution, :94-97) runs replicated per dp camera — the proxy
       raster is ~2% of the frame, so replication beats an extra gather.
@@ -135,20 +156,14 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
     from lsr_tpu.shading.models import (
         SHADING_MODELS, composite_over_background, _norm)
 
-    dp = mesh.shape["dp"]
     sp = mesh.shape["sp"]
-    assert height % sp == 0 and (height // sp) % tile_size == 0, (
-        "height must split into sp bands of whole light tiles")
+    assert height % sp == 0, "height must split into sp bands"
     assert shadow_size % sp == 0
     band_h = height // sp
     sm_band_h = shadow_size // sp
     tiles_x = -(-width // tile_size)
-    tiles_y = height // tile_size
-    band_tiles_y = band_h // tile_size
-
-    shard_map = getattr(jax, "shard_map", None)
-    if shard_map is None:  # older jax
-        from jax.experimental.shard_map import shard_map
+    win_tiles = _band_window(band_h, tile_size)
+    win_h = win_tiles * tile_size
 
     spot_ids, point_ids = (plan_shadow_casters(lights) if with_local
                            else ((), ()))
@@ -218,13 +233,11 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
                 geom.positions, geom.indices, geom.vtx_obj, geom.tri_obj,
                 objects.model, light_vp, shadow_size, shadow_size,
                 cull_mode=CULL_NONE, obj_visible=caster_mask)
-            from lsr_tpu.raster.tiled import SORT_DEPTH_SETUP
-
             sm_band, _, _ = rasterize_direct(
                 sm_setup, shadow_size, sm_band_h, jnp.float32(0.0),
                 jnp.float32(1.0), depth_mode=DEPTH_NDC01, track_ids=False,
                 y_offset=sp_idx * sm_band_h, full_height=shadow_size,
-                spatial_sort=SORT_DEPTH_SETUP)
+                spatial_sort=True)
             sm_full = lax.all_gather(
                 sm_band, "sp", axis=0, tiled=True)       # (S, S) everywhere
             shadow_ctx = make_shadow_context(sm_full, light_vp,
@@ -233,6 +246,8 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
 
             def one(vp, view):
                 y0 = sp_idx * band_h
+                ty0 = y0 // tile_size          # the band's shading window
+                wy0 = ty0 * tile_size
                 # Per-frame scene cull (frustum + proxy occlusion,
                 # hello_rendering_paths.cpp:94-97), replicated per camera.
                 view_mask = objects.visible
@@ -253,25 +268,21 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
                     objects.normal_mat, vp, width, height,
                     obj_visible=view_mask)
                 depth, tid, _ = rasterize_direct(
-                    setup, width, band_h, zn, zf,
-                    y_offset=y0, full_height=height)
-                gb = interpolate_gbuffer(setup, depth, tid, y_offset=y0,
+                    setup, width, win_h, zn, zf,
+                    y_offset=wy0, full_height=height)
+                gb = interpolate_gbuffer(setup, depth, tid, y_offset=wy0,
                                          materials=ctx_sh.materials)
 
                 # Sun + ambient on the band (shadow visibility included via
                 # ctx.shadow inside the shading model).
                 base = SHADING_MODELS[model_name](gb, ctx_sh)
 
-                # Full-frame tile lists (replicated compute), band rows
+                # Full-frame tile lists (replicated compute), window rows
                 # sliced — identical culling to the unsharded frame.
                 lists, counts, _ = cull_lights_tiled(
                     lights, view, proj, width, height, tile_size=tile_size,
                     cap=64)
-                band_lists = jax.lax.dynamic_slice_in_dim(
-                    lists.reshape(tiles_y, tiles_x, -1),
-                    sp_idx * band_tiles_y, band_tiles_y, axis=0)
-                band_lists = band_lists.reshape(
-                    band_tiles_y * tiles_x, -1)
+                band_lists = _window_lists(lists, tiles_x, ty0, win_tiles)
                 vis_stack = None
                 shadow_idx = None
                 if local_sh is not None:
@@ -283,7 +294,7 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
                     shadow_idx = local_sh.light_shadow_index
                 diff, spec = accumulate_local_lights(
                     gb.world_pos, gb.normal_ws, ctx_sh.camera_pos, lights,
-                    band_lists, width, band_h, tile_size=tile_size,
+                    band_lists, width, win_h, tile_size=tile_size,
                     shadow_vis_stack=vis_stack,
                     light_shadow_index=shadow_idx)
                 albedo, _, _, _, _, _ = gather_materials(
@@ -292,7 +303,8 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
                 bg = jnp.broadcast_to(
                     jnp.asarray((0.04, 0.06, 0.1), jnp.float32), hdr.shape)
                 hdr = composite_over_background(hdr, gb, bg)
-                ldr = tonemap_pass(hdr)
+                ldr = jax.lax.dynamic_slice_in_dim(
+                    tonemap_pass(hdr), y0 - wy0, band_h, 0)
 
                 # FXAA with 1-row ppermute halos (bit-exact vs unsharded).
                 up = lax.ppermute(ldr[-1:], "sp",
@@ -306,7 +318,7 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
 
             return jax.vmap(one)(vp_local, view_local)
 
-        out = shard_map(
+        out = jax.shard_map(
             shard_fn, mesh=mesh,
             in_specs=(P("dp"), P("dp")),
             out_specs=P("dp", "sp"),
@@ -335,10 +347,6 @@ def make_sharded_render(mesh: Mesh, geom, objects, shade_ctx,
     assert height % sp == 0, "height must divide by sp bands"
     band_h = height // sp
 
-    shard_map = getattr(jax, "shard_map", None)
-    if shard_map is None:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     def step(viewprojs, zn, zf):
         def shard_fn(vp_local):
             # vp_local: (B/dp, 4, 4); one camera per dp slice here (B==dp).
@@ -354,7 +362,7 @@ def make_sharded_render(mesh: Mesh, geom, objects, shade_ctx,
 
             return jax.vmap(one)(vp_local)
 
-        out = shard_map(
+        out = jax.shard_map(
             shard_fn,
             mesh=mesh,
             in_specs=(P("dp"),),
@@ -374,7 +382,7 @@ def make_mesh_lp(n_devices: int, sp: int | None = None,
 
     The lp axis is the renderer's analog of tensor/expert parallelism:
     each shard owns L/lp of the light set and the partial light
-    accumulation reduces over ICI with one psum (SURVEY.md section 2.3
+    accumulation reduces with one psum (SURVEY.md section 2.3
     multi-chip row)."""
     if devices is None:
         devices = jax.devices()[:n_devices]
@@ -424,8 +432,7 @@ def make_light_sharded_forward(mesh: Mesh, geom, objects, shade_ctx, lights,
     sp = mesh.shape["sp"]
     lp = mesh.shape["lp"]
     n_lights = int(lights.type.shape[0])
-    assert height % sp == 0 and (height // sp) % tile_size == 0, (
-        "height must split into sp bands of whole light tiles")
+    assert height % sp == 0, "height must split into sp bands"
     if n_lights % lp:
         # Pad to a multiple of lp with DISABLED lights (binned away).
         pad = lp - n_lights % lp
@@ -437,16 +444,15 @@ def make_light_sharded_forward(mesh: Mesh, geom, objects, shade_ctx, lights,
             range=lights.range.at[n_lights:].set(1e-3))
     band_h = height // sp
     tiles_x = -(-width // tile_size)
-    band_tiles_y = band_h // tile_size
-
-    shard_map = getattr(jax, "shard_map", None)
-    if shard_map is None:  # older jax
-        from jax.experimental.shard_map import shard_map
+    win_tiles = _band_window(band_h, tile_size)
+    win_h = win_tiles * tile_size
 
     def step(viewproj, view, proj, zn, zf):
         def shard_fn(lights_local):
             sp_idx = jax.lax.axis_index("sp")
             y0 = sp_idx * band_h
+            ty0 = y0 // tile_size              # the band's shading window
+            wy0 = ty0 * tile_size
 
             setup = scene_setup(
                 geom.positions, geom.normals, geom.uvs, geom.indices,
@@ -454,27 +460,24 @@ def make_light_sharded_forward(mesh: Mesh, geom, objects, shade_ctx, lights,
                 objects.normal_mat, viewproj, width, height,
                 obj_visible=objects.visible)
             depth, tid, _ = rasterize_direct(
-                setup, width, band_h, zn, zf,
-                y_offset=y0, full_height=height)
-            gb = interpolate_gbuffer(setup, depth, tid, y_offset=y0,
+                setup, width, win_h, zn, zf,
+                y_offset=wy0, full_height=height)
+            gb = interpolate_gbuffer(setup, depth, tid, y_offset=wy0,
                                      materials=shade_ctx.materials)
 
             # Sun + ambient: identical on every lp shard (no reduction).
             base = SHADING_MODELS[sun_model](gb, shade_ctx)
 
             # Local lights: bin MY slice over the full tile grid (same
-            # culling math as unsharded), slice my band's rows, accumulate,
-            # then one psum over "lp" merges the partial sums (ICI).
+            # culling math as unsharded), slice my window's rows,
+            # accumulate, then one psum over "lp" merges the partial sums.
             lists, counts, _ = cull_lights_tiled(
                 lights_local, view, proj, width, height,
                 tile_size=tile_size, cap=cap)
-            band_lists = jax.lax.dynamic_slice_in_dim(
-                lists.reshape(-1, tiles_x, lists.shape[-1]),
-                sp_idx * band_tiles_y, band_tiles_y, axis=0)
-            band_lists = band_lists.reshape(band_tiles_y * tiles_x, -1)
+            band_lists = _window_lists(lists, tiles_x, ty0, win_tiles)
             diff, spec = accumulate_local_lights(
                 gb.world_pos, gb.normal_ws, shade_ctx.camera_pos,
-                lights_local, band_lists, width, band_h,
+                lights_local, band_lists, width, win_h,
                 tile_size=tile_size)
             diff, spec = lax.psum((diff, spec), "lp")
 
@@ -484,9 +487,10 @@ def make_light_sharded_forward(mesh: Mesh, geom, objects, shade_ctx, lights,
             bg = jnp.broadcast_to(
                 jnp.asarray(background, jnp.float32), hdr.shape)
             hdr = composite_over_background(hdr, gb, bg)
-            return tonemap_pass(hdr)
+            return jax.lax.dynamic_slice_in_dim(
+                tonemap_pass(hdr), y0 - wy0, band_h, 0)
 
-        out = shard_map(
+        out = jax.shard_map(
             shard_fn,
             mesh=mesh,
             in_specs=(P("lp"),),
@@ -518,7 +522,7 @@ def make_pipelined_render(mesh: Mesh, geom, objects, shade_ctx,
     The pass chain splits into two stages — stage 0: geometry setup +
     raster + G-buffer interp; stage 1: shading + composite + tonemap —
     with the inter-stage G-buffer handed from device 0 to device 1 by one
-    `lax.ppermute` per step (ICI).  A `lax.scan` over the camera stream
+    `lax.ppermute` per step.  A `lax.scan` over the camera stream
     keeps both stages busy on consecutive frames: while device 1 shades
     frame i-1, device 0 rasterizes frame i.  This is the renderer analog
     of GPipe-style pipeline parallelism (SURVEY.md section 2.3 multi-chip
@@ -541,10 +545,6 @@ def make_pipelined_render(mesh: Mesh, geom, objects, shade_ctx,
     from lsr_tpu.raster.tiled import rasterize_direct
 
     assert mesh.shape["pp"] == 2, "2-stage pipeline: pp axis must be 2"
-
-    shard_map = getattr(jax, "shard_map", None)
-    if shard_map is None:  # older jax
-        from jax.experimental.shard_map import shard_map
 
     def stage0(vp, zn, zf):
         setup = scene_setup(
@@ -592,7 +592,7 @@ def make_pipelined_render(mesh: Mesh, geom, objects, shade_ctx,
                     idx == 1,
                     lambda: stage1(carry_gb),
                     lambda: jnp.zeros((height, width, 3), jnp.uint8))
-                # Hand the fresh G-buffer 0 -> 1 for the next step (ICI).
+                # Hand the fresh G-buffer 0 -> 1 for the next step.
                 sent = jax.tree_util.tree_map(
                     lambda x: lax.ppermute(x[None], "pp", [(0, 1)])[0],
                     new_gb)
@@ -601,7 +601,7 @@ def make_pipelined_render(mesh: Mesh, geom, objects, shade_ctx,
             _, ldrs = jax.lax.scan(one_step, gb_zeros(), vps_local[0])
             return ldrs[None]
 
-        out = shard_map(
+        out = jax.shard_map(
             shard_fn,
             mesh=mesh,
             in_specs=(P(None),),

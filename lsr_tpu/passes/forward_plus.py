@@ -1,6 +1,6 @@
 """Forward+ / clustered-forward lighting passes.
 
-The fused TPU equivalent of pass_adapters' pbr_forward_plus /
+The equivalent of pass_adapters' pbr_forward_plus /
 pbr_forward_clustered (pipeline/pass_adapters.hpp): sun + IBL shading from
 the G-buffer, plus binned local-light accumulation (tiled or clustered),
 composited over the background.
@@ -23,6 +23,27 @@ from lsr_tpu.lighting.light_culling import (
 from lsr_tpu.lighting.light_runtime import accumulate_local_lights
 from lsr_tpu.shading.common import sample_texture_bilinear
 from lsr_tpu.shading.models import SHADING_MODELS, composite_over_background
+
+
+def _sun_visibility(ctx, world_pos, n, sun_vis_scale: int):
+    """(H, W) sun shadow visibility, 1 where N.L <= 0 (the reference only
+    samples lit pixels).  sun_vis_scale > 1 evaluates it on a strided grid
+    and resizes bilinearly — the sun analog of LocalShadowMaps.vis_scale
+    (scale 2 quarters the visibility gathers; pair with the ESM prefilter,
+    whose penumbrae are low-frequency)."""
+    from lsr_tpu.lighting.shadow_sample import shadow_visibility_dir
+    from lsr_tpu.shading.models import _norm
+
+    l_dir = _norm(-ctx.light_dir_ws)
+    ndl = jnp.maximum(jnp.sum(n * l_dir[None, None], -1), 0.0)
+    if sun_vis_scale > 1:
+        sc = int(sun_vis_scale)
+        vis_s = shadow_visibility_dir(
+            ctx.shadow, world_pos[::sc, ::sc], ndl[::sc, ::sc])
+        vis = jax.image.resize(vis_s, ndl.shape, "bilinear")
+    else:
+        vis = shadow_visibility_dir(ctx.shadow, world_pos, ndl)
+    return jnp.where(ndl > 0.0, vis, 1.0)
 
 
 @functools.partial(
@@ -57,135 +78,25 @@ def shade_forward_plus(
 
     local_shadows: optional lighting.local_shadows.LocalShadowMaps — applies
     spot/point/area-proxy shadow maps inside the local light loop
-    (eval_local_shadow semantics, fp_stress_scene.frag:355-414).  Currently
-    served by the XLA accumulation path.
+    (eval_local_shadow semantics, fp_stress_scene.frag:355-414).
+    The sun, ambient/IBL and emissive terms are the shading model's
+    (SHADING_MODELS[sun_model]); the binned local lights are accumulated by
+    the Triton kernel (lighting/shade_kernel.py) with use_kernel=True, or
+    by the plain XLA path with False.
     Returns (hdr (H,W,3), light_stats dict).
     """
-    # Fused fast path: ONE Pallas kernel computes sun BRDF + binned local
-    # lights (and applies local shadow maps via per-light visibility-plane
-    # selection); only ambient/emissive and background composition stay in
-    # XLA.
-    if (use_kernel
-            and mode in ("tiled", "tiled_depth_range", "clustered")
-            and sun_model in ("pbr_mr", "blinn_phong")):
-        from lsr_tpu.lighting.shade_kernel import shade_fused_pallas
-        from lsr_tpu.lighting.shadow_sample import shadow_visibility_dir
-        from lsr_tpu.shading.common import gather_materials
-        from lsr_tpu.shading.models import _ambient, _norm
+    from lsr_tpu.shading.common import gather_materials
+    from lsr_tpu.shading.models import _norm
 
-        mat_base, metal, rough, ao, emissive, tex_id = gather_materials(
-            ctx.materials, gb.obj_id, mat_rec=getattr(gb, "mat", None)
-        )
-        albedo = mat_base
-        if ctx.textures is not None:
-            albedo = albedo * sample_texture_bilinear(
-                ctx.textures, tex_id, gb.uv, quads=ctx.texture_quads
-            )
-        albedo = jnp.maximum(albedo, 0.0)
-
-        n = _norm(gb.normal_ws)
-        if ctx.surface_maps:
-            from lsr_tpu.shading.common import (
-                apply_surface_maps, gather_material_texture_slots)
-
-            ntex, otex, etex = gather_material_texture_slots(
-                ctx.materials, gb.obj_id, mat_rec=getattr(gb, "mat", None))
-            n, metal, rough, ao, emissive = apply_surface_maps(
-                ctx.textures, ctx.texture_quads, gb.uv, gb.tangent, n,
-                ntex, otex, etex, metal, rough, ao, emissive)
-        if ctx.shadow is not None:
-            l_dir = _norm(-ctx.light_dir_ws)
-            ndl = jnp.maximum(jnp.sum(n * l_dir[None, None], -1), 0.0)
-            if sun_vis_scale > 1:
-                # Strided sun-visibility evaluation + bilinear up — the
-                # sun analog of LocalShadowMaps.vis_scale (the gather is
-                # row-count-bound, so scale 2 quarters its cost; pair with
-                # the ESM prefilter whose penumbrae are low-frequency).
-                sc = int(sun_vis_scale)
-                vis_s = shadow_visibility_dir(
-                    ctx.shadow, gb.world_pos[::sc, ::sc], ndl[::sc, ::sc])
-                vis = jax.image.resize(vis_s, ndl.shape, "bilinear")
-            else:
-                vis = shadow_visibility_dir(ctx.shadow, gb.world_pos, ndl)
-            vis = jnp.where(ndl > 0.0, vis, 1.0)
-        else:
-            vis = jnp.ones_like(gb.depth01)
-
-        tdr = None
-        if mode == "tiled_depth_range":
-            tdr = tile_depth_ranges_from_buffer(
-                gb.depth01, zn, zf, width, height, 128, tile_h=64
-            )
-        slice_plane = None
-        kern_slices = 0
-        if mode == "clustered":
-            view_z = zn + gb.depth01 * (zf - zn)
-            slice_plane = view_depth_to_cluster_slice(view_z, zn, zf, slices)
-            kern_slices = slices
-        local_vis = shadow_idx = None
-        if local_shadows is not None:
-            from lsr_tpu.lighting.local_shadows import local_shadow_vis_stack
-
-            local_vis = local_shadow_vis_stack(
-                local_shadows, gb.world_pos, n)
-            shadow_idx = local_shadows.light_shadow_index
-        # apow1: when every light's attenuation power is the builder
-        # default 1.0 AND the light set is concrete at trace time (bench /
-        # demo closures; pipeline state is traced and keeps the pow), skip
-        # the per-light pow — pow(x, 1) on the VPU costs ~2e-10 error, so
-        # the skip is the MORE exact path (dbg_shade: 5.73 vs 6.31 ms).
-        fast = ()
-        ap = lights.atten_power
-        if not isinstance(ap, jax.core.Tracer):
-            apn = np.asarray(ap)
-            if apn.size and bool((apn == 1.0).all()):
-                fast = ("apow1",)
-        # Same trace-time concreteness trick for the light-TYPE set: when
-        # the scene's types are known, the kernel statically drops math
-        # for absent types (bit-exact — see _shade_kernel light_kinds).
-        kinds = None
-        if not isinstance(lights.type, jax.core.Tracer):
-            kinds = tuple(sorted(int(t) for t in
-                                 np.unique(np.asarray(lights.type))))
-        lit, bin_stats = shade_fused_pallas(
-            gb.world_pos, n, gb.covered,
-            albedo, metal[..., 0], rough[..., 0], vis,
-            ctx.camera_pos, ctx.light_dir_ws,
-            ctx.light_color * ctx.light_intensity,
-            lights, view, proj, width, height,
-            # chunk=8 measured fastest across th {32,64,128} on the 1080p
-            # bench workload (dbg_shade sweep: 5.70 vs 6.31 ms at chunk=16)
-            # and gives the per-chunk shadowed-flag skip finer granularity.
-            tile_h=64, tile_w=128, cap=cap * 2, chunk=8,
-            tile_depth_range=tdr, sun_model=sun_model, fastmath=fast,
-            local_vis_stack=local_vis, light_shadow_index=shadow_idx,
-            cluster_slice_plane=slice_plane, slices=kern_slices,
-            zn=zn, zf=zf, light_kinds=kinds,
-        )
-        v = _norm(ctx.camera_pos[None, None, :] - gb.world_pos)
-        amb = _ambient(ctx, n, v, albedo, metal, rough, ao) + emissive
-        if env_probes:
-            from lsr_tpu.lighting.light_runtime import eval_env_probes
-
-            amb = amb + eval_env_probes(lights, gb.world_pos, amb - emissive)
-        hdr = lit + jnp.where(gb.covered[..., None], amb, 0.0)
-        bg = jnp.broadcast_to(jnp.asarray(background, jnp.float32), hdr.shape)
-        hdr = composite_over_background(hdr, gb, bg)
-        return hdr, {"max_lights_per_bin": bin_stats["max_count"],
-                     "overflow_bins": bin_stats["overflow_bins"],
-                     "total_bins": 0}
-
-    # Surface maps on the XLA path: perturb the G-buffer normal in place AND
-    # thread the mapped ORM/emissive through ctx.mat_override so the sun
-    # model and the local-light combine see the same surfaces as the fused
-    # kernel path (pass_adapters' shading reads all four texture slots).
+    # Surface maps: perturb the G-buffer normal in place AND thread the
+    # mapped ORM/emissive through ctx.mat_override so the sun model and the
+    # local-light combine see the same surfaces (pass_adapters' shading
+    # reads all four texture slots).
     if ctx.surface_maps:
         import dataclasses as _dc
 
         from lsr_tpu.shading.common import (
-            apply_surface_maps, gather_material_texture_slots,
-            gather_materials)
-        from lsr_tpu.shading.models import _norm as _nrm
+            apply_surface_maps, gather_material_texture_slots)
 
         base0, metal0, rough0, ao0, em0, tex0 = gather_materials(
             ctx.materials, gb.obj_id, mat_rec=getattr(gb, "mat", None))
@@ -193,7 +104,7 @@ def shade_forward_plus(
             ctx.materials, gb.obj_id, mat_rec=getattr(gb, "mat", None))
         n_mapped, metal_m, rough_m, ao_m, em_m = apply_surface_maps(
             ctx.textures, ctx.texture_quads, gb.uv, gb.tangent,
-            _nrm(gb.normal_ws), ntex, otex, etex,
+            _norm(gb.normal_ws), ntex, otex, etex,
             metal0, rough0, ao0, em0)
         albedo_m = base0
         if ctx.textures is not None:
@@ -204,47 +115,12 @@ def shade_forward_plus(
             jnp.maximum(albedo_m, 0.0), metal_m, rough_m, ao_m, em_m))
 
     # Sun + ambient/IBL via the built-in single-light models.
+    if ctx.shadow is not None and sun_vis_scale > 1:
+        import dataclasses as _dc
+
+        ctx = _dc.replace(ctx, sun_vis=_sun_visibility(
+            ctx, gb.world_pos, _norm(gb.normal_ws), sun_vis_scale))
     base = SHADING_MODELS[sun_model](gb, ctx)
-
-    vis_stack = shadow_index = None
-    if local_shadows is not None:
-        from lsr_tpu.lighting.local_shadows import local_shadow_vis_stack
-
-        vis_stack = local_shadow_vis_stack(
-            local_shadows, gb.world_pos, gb.normal_ws)
-        shadow_index = local_shadows.light_shadow_index
-
-    if mode == "clustered":
-        lists, counts, bin_stats = cull_lights_clustered(
-            lights, view, proj, zn, zf, width, height,
-            tile_size=tile_size, cap=cap, slices=slices,
-        )
-        view_z = zn + gb.depth01 * (zf - zn)
-        cluster = view_depth_to_cluster_slice(view_z, zn, zf, slices)
-        diff, spec = accumulate_local_lights(
-            gb.world_pos, gb.normal_ws, ctx.camera_pos, lights, lists,
-            width, height, tile_size=tile_size, chunk=chunk,
-            cluster_of_pixel=cluster, slices=slices,
-            shadow_vis_stack=vis_stack, light_shadow_index=shadow_index,
-        )
-    else:
-        tdr = None
-        if mode == "tiled_depth_range":
-            tdr = tile_depth_ranges_from_buffer(
-                gb.depth01, zn, zf, width, height, tile_size
-            )
-        lists, counts, bin_stats = cull_lights_tiled(
-            lights, view, proj, width, height,
-            tile_size=tile_size, cap=cap, tile_depth_range=tdr,
-        )
-        diff, spec = accumulate_local_lights(
-            gb.world_pos, gb.normal_ws, ctx.camera_pos, lights, lists,
-            width, height, tile_size=tile_size, chunk=chunk,
-            shadow_vis_stack=vis_stack, light_shadow_index=shadow_index,
-        )
-
-    # Material combine (albedo-modulated diffuse + specular).
-    from lsr_tpu.shading.common import gather_materials
 
     if ctx.mat_override is not None:
         albedo = ctx.mat_override[0]
@@ -256,154 +132,85 @@ def shade_forward_plus(
             albedo = albedo * sample_texture_bilinear(
                 ctx.textures, tex_id, gb.uv, quads=ctx.texture_quads
             )
-    local = jnp.maximum(albedo, 0.0) * diff + spec
+    albedo = jnp.maximum(albedo, 0.0)
+
+    vis_stack = shadow_index = None
+    if local_shadows is not None:
+        from lsr_tpu.lighting.local_shadows import local_shadow_vis_stack
+
+        vis_stack = local_shadow_vis_stack(
+            local_shadows, gb.world_pos, gb.normal_ws)
+        shadow_index = local_shadows.light_shadow_index
+
+    tdr = None
+    if mode == "tiled_depth_range":
+        tdr = tile_depth_ranges_from_buffer(
+            gb.depth01, zn, zf, width, height, tile_size)
+    cluster = None
+    if mode == "clustered":
+        view_z = zn + gb.depth01 * (zf - zn)
+        cluster = view_depth_to_cluster_slice(view_z, zn, zf, slices)
+
+    if use_kernel:
+        from lsr_tpu.lighting.shade_kernel import shade_local_lights
+
+        # When the light set is concrete at trace time (bench / demo
+        # closures; pipeline state is traced), the kernel specializes on it:
+        # it skips the attenuation pow when every atten_power is 1, and
+        # drops the math of light types the scene does not contain.
+        unit_pow = False
+        kinds = None
+        if not isinstance(lights.type, jax.core.Tracer):
+            kinds = tuple(sorted(int(t) for t in
+                                 np.unique(np.asarray(lights.type))))
+        if not isinstance(lights.atten_power, jax.core.Tracer):
+            apn = np.asarray(lights.atten_power)
+            unit_pow = bool(apn.size) and bool((apn == 1.0).all())
+        local, bin_stats = shade_local_lights(
+            gb.world_pos, gb.normal_ws, gb.covered, albedo,
+            ctx.camera_pos, lights, view, proj, width, height,
+            tile_size=tile_size, cap=cap, tile_depth_range=tdr,
+            local_vis_stack=vis_stack, light_shadow_index=shadow_index,
+            cluster_slice_plane=cluster,
+            slices=slices if mode == "clustered" else 0,
+            zn=zn, zf=zf, unit_atten_power=unit_pow, light_kinds=kinds,
+        )
+    else:
+        if mode == "clustered":
+            lists, _, bin_stats = cull_lights_clustered(
+                lights, view, proj, zn, zf, width, height,
+                tile_size=tile_size, cap=cap, slices=slices,
+            )
+        else:
+            lists, _, bin_stats = cull_lights_tiled(
+                lights, view, proj, width, height,
+                tile_size=tile_size, cap=cap, tile_depth_range=tdr,
+            )
+        diff, spec = accumulate_local_lights(
+            gb.world_pos, gb.normal_ws, ctx.camera_pos, lights, lists,
+            width, height, tile_size=tile_size, chunk=chunk,
+            cluster_of_pixel=cluster,
+            slices=slices if mode == "clustered" else 1,
+            shadow_vis_stack=vis_stack, light_shadow_index=shadow_index,
+        )
+        local = albedo * diff + spec
 
     hdr = base + local
     if env_probes:
         from lsr_tpu.lighting.light_runtime import eval_env_probes
-        from lsr_tpu.shading.models import _ambient as _amb_fn, _norm as _n
+        from lsr_tpu.shading.models import _ambient
 
-        nrm = _n(gb.normal_ws)
-        vv = _n(ctx.camera_pos[None, None, :] - gb.world_pos)
+        vv = _norm(ctx.camera_pos[None, None, :] - gb.world_pos)
         if ctx.mat_override is not None:
             _, metal_a, rough_a, ao_a, _ = ctx.mat_override
         else:
             _, metal_a, rough_a, ao_a, _, _ = gather_materials(
                 ctx.materials, gb.obj_id, mat_rec=getattr(gb, "mat", None))
-        amb_base = _amb_fn(ctx, nrm, vv, jnp.maximum(albedo, 0.0),
-                           metal_a, rough_a, ao_a)
+        amb_base = _ambient(ctx, _norm(gb.normal_ws), vv, albedo,
+                            metal_a, rough_a, ao_a)
         probe = eval_env_probes(lights, gb.world_pos, amb_base)
         hdr = hdr + jnp.where(gb.covered[..., None], probe, 0.0)
     bg = jnp.broadcast_to(jnp.asarray(background, jnp.float32), hdr.shape)
     hdr = composite_over_background(hdr, gb, bg)
-    stats = {"max_lights_per_bin": bin_stats["max_count"],
-             "overflow_bins": bin_stats["overflow_bins"],
-             "total_bins": counts.shape[0]}
-    return hdr, stats
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("width", "height", "cap", "sun_model", "rec_layout",
-                     "sun_vis_scale"),
-)
-def resolve_forward_plus(
-    setup,
-    depth01,
-    tid,
-    ctx,
-    lights,
-    view,
-    proj,
-    zn,
-    zf,
-    width: int,
-    height: int,
-    cap: int = 128,
-    sun_model: str = "pbr_mr",
-    background=(0.04, 0.06, 0.1),
-    rec_layout: str = "planes",
-    local_shadows=None,
-    sun_vis_scale: int = 1,
-):
-    """Fully-fused resolve path: visibility buffer -> lit HDR in ONE Pallas
-    kernel (lighting/resolve_kernel.py) with no intermediate G-buffer.
-
-    XLA keeps only what it must: the per-pixel interp-record gather, the
-    PCF shadow gather (positions come from reconstruct_world_pos — pure
-    depth math, ~1e-3 agreement with interpolated positions), and the
-    texture gather (uv interpolated inline).  The sun-shadow slope bias
-    uses the triangle's corner-0 normal instead of the interpolated normal
-    (bias-only approximation; the lit term uses the exact interpolated
-    normal inside the kernel).
-
-    local_shadows: optional LocalShadowMaps — visibility planes are
-    evaluated in XLA on the same reconstructed positions / corner-0
-    normals (the identical approximation class as the sun term above) and
-    fed plane-major into the kernel's light loop.
-
-    Constraints: fake-IBL ambient only (ctx.ibl is ignored here — use
-    shade_forward_plus for real-IBL scenes).
-    Returns (hdr, stats) like shade_forward_plus.
-    """
-    from lsr_tpu.core.gather import take_rows
-    from lsr_tpu.lighting.resolve_kernel import resolve_fused_pallas
-    from lsr_tpu.lighting.shadow_sample import shadow_visibility_dir
-    from lsr_tpu.raster.interp import (
-        pack_interp_records, reconstruct_world_pos)
-    from lsr_tpu.shading.models import _norm
-
-    covered = tid >= 0
-    safe = jnp.where(covered, tid, 0)
-    rec = take_rows(pack_interp_records(setup, ctx.materials), safe)
-
-    wp_r = None
-    n0 = None
-    if ctx.shadow is not None or local_shadows is not None:
-        wp_r = reconstruct_world_pos(depth01, view, proj, zn, zf,
-                                     width, height)
-        n0 = _norm(rec[..., 21:24])
-    if ctx.shadow is not None:
-        l_dir = _norm(-ctx.light_dir_ws)
-        ndl = jnp.maximum(jnp.sum(n0 * l_dir[None, None], -1), 0.0)
-        if sun_vis_scale > 1:
-            # Strided sun-visibility + bilinear up, identical to the
-            # shade_forward_plus path (the gather is row-count-bound).
-            sc = int(sun_vis_scale)
-            vis_s = shadow_visibility_dir(
-                ctx.shadow, wp_r[::sc, ::sc], ndl[::sc, ::sc])
-            vis = jax.image.resize(vis_s, ndl.shape, "bilinear")
-        else:
-            vis = shadow_visibility_dir(ctx.shadow, wp_r, ndl)
-        vis = jnp.where(ndl > 0.0, vis, 1.0)
-    else:
-        vis = jnp.ones_like(depth01)
-
-    local_vis_planes = None
-    light_shadow_index = None
-    if local_shadows is not None and local_shadows.n_shadowed:
-        from lsr_tpu.lighting.local_shadows import local_shadow_vis_planes
-
-        local_vis_planes = local_shadow_vis_planes(local_shadows, wp_r, n0)
-        light_shadow_index = local_shadows.light_shadow_index
-
-    if ctx.textures is not None:
-        xs = jnp.arange(width, dtype=jnp.float32)[None, :] + 0.5
-        ys = jnp.arange(height, dtype=jnp.float32)[:, None] + 0.5
-        bc0 = rec[..., 0] * xs + rec[..., 1] * ys + rec[..., 2]
-        bc1 = rec[..., 3] * xs + rec[..., 4] * ys + rec[..., 5]
-        bc2 = rec[..., 6] * xs + rec[..., 7] * ys + rec[..., 8]
-        w0 = bc0 * rec[..., 9]
-        w1 = bc1 * rec[..., 10]
-        w2 = bc2 * rec[..., 11]
-        inv_den = 1.0 / jnp.maximum(w0 + w1 + w2, 1e-12)
-        u = (w0 * rec[..., 30] + w1 * rec[..., 32] + w2 * rec[..., 34]) \
-            * inv_den
-        v = (w0 * rec[..., 31] + w1 * rec[..., 33] + w2 * rec[..., 35]) \
-            * inv_den
-        tex_id = rec[..., 49].astype(jnp.int32)
-        tex_albedo = sample_texture_bilinear(
-            ctx.textures, tex_id, jnp.stack([u, v], -1),
-            quads=ctx.texture_quads)
-    else:
-        tex_albedo = jnp.ones(depth01.shape + (3,), jnp.float32)
-
-    kinds = None
-    if not isinstance(lights.type, jax.core.Tracer):
-        kinds = tuple(sorted(int(t) for t in
-                             np.unique(np.asarray(lights.type))))
-    hdr, bin_stats = resolve_fused_pallas(
-        rec, vis, covered, tex_albedo,
-        ctx.camera_pos, ctx.light_dir_ws,
-        ctx.light_color * ctx.light_intensity,
-        jnp.asarray(background, jnp.float32),
-        lights, view, proj, width, height,
-        tile_h=64, tile_w=128, cap=cap * 2, chunk=8, sun_model=sun_model,
-        rec_layout=rec_layout,
-        local_vis_planes=local_vis_planes,
-        light_shadow_index=light_shadow_index,
-        light_kinds=kinds,
-    )
     return hdr, {"max_lights_per_bin": bin_stats["max_count"],
-                 "overflow_bins": bin_stats["overflow_bins"],
-                 "total_bins": 0}
+                 "overflow_bins": bin_stats["overflow_bins"]}

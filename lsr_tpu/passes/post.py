@@ -2,7 +2,7 @@
 
 Each pass mirrors a reference pass/demo, expressed as one XLA-fused array
 transform (these are the embarrassingly-parallel row loops of the reference,
-which is exactly what the VPU eats):
+which is exactly what fuses into one elementwise pass):
 
 - motion_vectors: per-pixel velocity from history matrices
   (rasterizer.hpp:387-414 write_motion block)
@@ -52,9 +52,10 @@ def motion_vectors_pass(gb, objects, viewproj, prev_viewproj, width, height,
 
     wp = gb.world_pos
     hom = jnp.concatenate([wp, jnp.ones_like(wp[..., :1])], -1)
-    prev_world = jnp.einsum("hwij,hwj->hwi", c2p, hom)
-    curr_clip = hom @ viewproj.T
-    prev_clip = prev_world @ prev_viewproj.T
+    hi = jax.lax.Precision.HIGHEST
+    prev_world = jnp.einsum("hwij,hwj->hwi", c2p, hom, precision=hi)
+    curr_clip = jnp.matmul(hom, viewproj.T, precision=hi)
+    prev_clip = jnp.matmul(prev_world, prev_viewproj.T, precision=hi)
 
     wc = curr_clip[..., 3:4]
     wp_ = prev_clip[..., 3:4]
@@ -141,8 +142,7 @@ def light_shafts_pass(img, depth01, camera_pos, sun_dir_ws, viewproj,
     index j with weight decay^j and position t_j = 1-(1-d)^j (geometric
     spacing toward the sun; zoom maps compose as 1-(1-a)(1-b)).  That is
     2^ceil(log2 steps) effective taps from ~6 gathers — the gather count
-    was the entire cost of this pass on TPU (48 gathers ~ 150ms at 800x600
-    in round 1).  The reference's linear-t spacing is available with
+    is the cost of this pass.  The reference's linear-t spacing is available with
     log_march=False; the deviation of the default is documented in
     PARITY.md ("light shafts march") and golden/parity presets pin
     log_march explicitly."""

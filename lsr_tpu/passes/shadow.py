@@ -16,13 +16,13 @@ import jax.numpy as jnp
 from lsr_tpu.camera.light_camera import build_dir_light_camera
 from lsr_tpu.lighting.shadow_sample import make_shadow_context
 from lsr_tpu.raster.brute import rasterize_brute
-from lsr_tpu.raster.setup import CULL_NONE, DEPTH_NDC01, scene_setup
-from lsr_tpu.raster.tiled import rasterize_tiled
+from lsr_tpu.raster.setup import CULL_NONE, DEPTH_NDC01
+from lsr_tpu.raster.tiled import rasterize_direct
 from lsr_tpu.scene.scene import shadow_caster_aabb
 
 
 @functools.partial(
-    jax.jit, static_argnames=("map_size", "use_tiled", "cap", "depth_margin")
+    jax.jit, static_argnames=("map_size", "use_tiled", "depth_margin")
 )
 def render_shadow_map(
     geom,
@@ -30,7 +30,6 @@ def render_shadow_map(
     sun_dir_ws,
     map_size: int = 2048,
     use_tiled: bool = True,
-    cap: int = 2048,
     depth_margin: float = 10.0,
 ):
     """Returns (shadow_depth (S,S), light_viewproj (4,4))."""
@@ -50,18 +49,9 @@ def render_shadow_map(
     )
     one = jnp.float32(1.0)
     if use_tiled:
-        from lsr_tpu.raster.tiled import rasterize_direct
-
         depth, _, _ = rasterize_direct(
             setup, map_size, map_size, jnp.float32(0.0), one,
-            depth_mode=DEPTH_NDC01, track_ids=False,
-            # 128x128 tiles beat the 64x128 default for big square
-            # depth-only targets (19.9 vs 23.7 ms at 2048^2, bit-exact;
-            # scripts/dbg_shadowraster.py).  spatial_sort wins for the ONE
-            # big sun map (12.5 vs 15.6 ms at 2048^2, dbg_local r3ab) but
-            # LOSES for per-slot atlas stacks (the per-slot argsort costs
-            # more than it saves at 1024^2) — promoted here only.
-            tile_h=128, tile_w=128, spatial_sort=True,
+            depth_mode=DEPTH_NDC01, track_ids=False, spatial_sort=True,
         )
     else:
         depth, _ = rasterize_brute(

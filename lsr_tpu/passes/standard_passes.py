@@ -24,7 +24,7 @@ from lsr_tpu.pipeline.render_pass import RenderPass
 def _raster(state, fp: FrameParams, depth_only: bool = False):
     from lsr_tpu.raster.interp import interpolate_gbuffer
     from lsr_tpu.raster.setup import scene_setup
-    from lsr_tpu.raster.tiled import rasterize_direct, rasterize_tiled
+    from lsr_tpu.raster.tiled import rasterize_direct
 
     geom = state["geom"]
     objects = state["objects"]
@@ -72,29 +72,16 @@ def _raster(state, fp: FrameParams, depth_only: bool = False):
             cam.viewproj, fp.width, fp.height,
             cull_mode=fp.cull_mode, obj_visible=view_mask,
         )
-    # The listless kernel needs the packed setup resident in VMEM; fall back
-    # to the binned kernel for very large scenes.  use_tiled_raster=False
+    # One tiled raster serves every triangle count; use_tiled_raster=False
     # selects the pure-XLA brute anchor (the Phase-I parity backend).
     if not fp.use_tiled_raster:
         from lsr_tpu.raster.brute import rasterize_brute
 
         depth, tid = rasterize_brute(setup, fp.width, fp.height, cam.zn,
                                      cam.zf)
-    elif setup.count <= 150_000:
-        depth, tid, _ = rasterize_direct(
-            setup, fp.width, fp.height, cam.zn, cam.zf,
-            tile_h=fp.raster_tile_h, tile_w=fp.raster_tile_w,
-            chunk=fp.raster_chunk,
-            # Tile-order sort wins for the camera raster (6.2 vs 8.1 ms at
-            # 1080p, bit-exact incl. tids; dbg_local r3ab).
-            spatial_sort=True,
-        )
     else:
-        depth, tid, _ = rasterize_tiled(
-            setup, fp.width, fp.height, cam.zn, cam.zf,
-            tile_h=fp.raster_tile_h, tile_w=fp.raster_tile_w,
-            cap=fp.raster_cap, chunk=fp.raster_chunk,
-        )
+        depth, tid, _ = rasterize_direct(
+            setup, fp.width, fp.height, cam.zn, cam.zf, spatial_sort=True)
     out = dict(state)
     out["setup"] = setup
     out["depth"] = depth

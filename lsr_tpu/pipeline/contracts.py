@@ -12,7 +12,7 @@ import dataclasses
 
 from lsr_tpu.core.frame import TechniqueMode
 
-# The 15 standard semantics (pass_contract.hpp:34) adapted to the TPU design,
+# The 15 standard semantics (pass_contract.hpp:34) adapted to this design,
 # plus two extensions for subsystems the reference wires outside its contract
 # system (the flagship's per-frame culling results and local shadow atlas,
 # hello_rendering_paths.cpp:94-109 — passed as demo-level state there).

@@ -104,8 +104,8 @@ class PluggablePipeline:
     def execute_jitted(self, ctx: RenderContext, frame_state: dict, fp) -> dict:
         """Whole-plan jit: every pass traces into ONE compiled program.
 
-        This is the production frame path (eager pass glue costs ~ms per op
-        through a remote device).  Per-pass timings are unavailable inside a
+        This is the production frame path (eager pass glue dispatches op by
+        op).  Per-pass timings are unavailable inside a
         fused program — use execute() for the instrumented path.  Passes must
         be pure (they are; temporal state lives in frame state).
         """
@@ -138,22 +138,23 @@ class PluggablePipeline:
         return out
 
     def execute_segmented(self, ctx: RenderContext, frame_state: dict, fp,
-                          iters=(2, 8)) -> dict:
+                          reps: int = 8) -> dict:
         """Per-pass DEVICE timing at jit speed (profiling mode).
 
-        Each pass compiles to its OWN jitted program (cached across frames)
-        and is timed with the host-readback slope method
-        (utils/devtime.slope_ms) — the analog of the reference's per-pass
+        Each pass compiles to its OWN jitted program (cached across frames);
+        after one warm call it is timed `reps` times, each call ending
+        in jax.block_until_ready — the analog of the reference's per-pass
         GPU timestamp pool (hello_rendering_paths.cpp:111, :274-283).
         Cross-pass XLA fusion is absent by construction, so the SUM of the
         recorded pass times upper-bounds the fused execute_jitted frame;
-        use it for stage attribution, not headline fps.  Results land in
-        ctx.debug.pass_ms; outputs are identical to execute_jitted up to
-        fusion-order float reassociation.
+        use it for stage attribution, not headline fps.  Results (mean ms
+        and its standard error) land in ctx.debug.pass_ms / pass_ms_err;
+        outputs are identical to execute_jitted up to fusion-order float
+        reassociation.
         """
-        import jax
+        import time
 
-        from lsr_tpu.utils.devtime import slope_ms_paired
+        import jax
 
         plan = self.build_plan(fp)
         if not plan.ok:
@@ -175,10 +176,17 @@ class PluggablePipeline:
                 self._seg_jits[idx] = jax.jit(
                     lambda s, p=p, req=req: p.execute_resolved(
                         ctx, s, fp, req))
-            # Interleaved paired slopes + >=0 clamp + stderr: published
-            # per-pass rows must be physical (VERDICT r3 item 6).
-            state, ms, err = slope_ms_paired(self._seg_jits[idx], state,
-                                             iters=iters)
+            fn = self._seg_jits[idx]
+            jax.block_until_ready(fn(state))           # compile + warm
+            ts = []
+            for _ in range(max(1, reps)):
+                t0 = time.perf_counter()
+                out = jax.block_until_ready(fn(state))
+                ts.append((time.perf_counter() - t0) * 1000.0)
+            state = out
+            ms = sum(ts) / len(ts)
+            err = (sum((t - ms) ** 2 for t in ts)
+                   / max(1, len(ts) - 1) / len(ts)) ** 0.5
             ctx.debug.pass_ms[p.pass_id] = ms
             ctx.debug.pass_ms_err[p.pass_id] = err
         ctx.debug.frames += 1

@@ -1,6 +1,6 @@
 """Render-pass protocol and execution value types.
 
-The TPU re-design of pipeline/render_pass.hpp:265-310.  A pass is a named,
+The JAX re-design of pipeline/render_pass.hpp:265-310.  A pass is a named,
 contract-carrying unit whose `execute` is a *pure function* from frame state
 (a dict of named device arrays / pytrees) to new frame state.  The two-phase
 split the reference enforces — `build_execution_request` (pure validation,

@@ -7,7 +7,7 @@ exactly like the reference's sequential per-pixel test
 
 Output is a *visibility buffer*: per-pixel depth01 and the winning triangle id
 (-1 = background).  Attribute interpolation and shading happen in separate
-fullscreen passes (raster/interp.py), which is the TPU-idiomatic split: the
+fullscreen passes (raster/interp.py), which is the array-friendly split: the
 rasterizer is bandwidth-lean, shading is a fused elementwise pass.
 
 This path is O(T * W * H) and is used for tests, tiny offline renders, and as

@@ -50,9 +50,8 @@ class GBuffer:
 def pack_interp_records(setup: TriSetup, materials=None):
     """Pack everything the interp pass needs into ONE (N, 40|56) f32 record.
 
-    TPU gathers are per-row-overhead dominated: one wide row gather is an
-    order of magnitude faster than seven narrow ones (measured 7ms vs 117ms
-    for a 2M-pixel frame) — so the per-object MATERIAL record is baked in
+    Gathers pay a per-row overhead: one wide row gather beats seven narrow
+    ones — so the per-object MATERIAL record is baked in
     per triangle too when given (lanes 40:56, pack_material_records layout),
     making the shading-time material lookup free.
 

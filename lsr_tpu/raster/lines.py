@@ -2,7 +2,7 @@
 
 The reference draws lines with the all-octant Bresenham loop
 (shs_renderer.hpp:808-822, Canvas::draw_line).  That loop is inherently
-sequential; on TPU we use its exact closed form instead: with
+sequential; we use its exact closed form instead: with
 n = max(|dx|, |dy|) steps, the pixel at step t is
 
     x(t) = x0 + sx * floor((2 t |dx| + n) / (2 n))
@@ -10,7 +10,7 @@ n = max(|dx|, |dy|) steps, the pixel at step t is
 
 which reproduces the reference loop pixel-for-pixel (verified exhaustively
 against a direct simulation), while being a pure data-parallel map over
-(line, step) that XLA vectorizes onto the VPU.
+(line, step) that XLA vectorizes.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ This is the geometry front-end of the rasterizer (the analog of the
 per-triangle prologue of rasterize_mesh, rasterizer.hpp:206-328), restructured
 as batched SoA array transforms:
 
-- vertex transform is one big (V,4) x (4,4) matmul per scene batch (MXU),
+- vertex transform is one big (V,4) x (4,4) matmul per scene batch,
 - near clipping is the static 2-slot expansion from raster/clip.py,
 - per-triangle "setup" precomputes the affine barycentric coefficients
   bc_i(x, y) = A_i x + B_i y + C_i, the per-corner 1/w, and the screen bbox,
@@ -63,15 +63,14 @@ def vertex_stage(positions, normals, uvs, vtx_obj, models, normal_mats, viewproj
     models: (O, 4, 4); normal_mats: (O, 3, 3); viewproj: (4, 4).
     Returns (world (V,3), clip (V,4), normal_ws (V,3)).
     """
-    # ONE packed per-vertex gather (model 16 + normal-matrix 9 floats) —
-    # separate (V,4,4)/(V,3,3) gathers are per-row-overhead bound on TPU.
+    # ONE packed per-vertex gather (model 16 + normal-matrix 9 floats)
+    # instead of separate (V,4,4)/(V,3,3) row gathers.
     o = models.shape[0]
     xf = jnp.concatenate(
         [models.reshape(o, 16), normal_mats.reshape(o, 9)], axis=-1
     )[vtx_obj]                                   # (V, 25)
-    # Per-vertex tiny matmuls written as lane arithmetic: a (V,4,4)x(V,4)
-    # einsum lowers to MXU-padded batched matmuls (measured ~10ms at 72K
-    # verts); explicit FMAs over (V,) columns run on the VPU in <1ms.
+    # Per-vertex tiny matmuls written as explicit FMAs over (V,) columns:
+    # one fused elementwise pass instead of (V,4,4)x(V,4) batched matmuls.
     x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
 
     def row4(c):
@@ -79,7 +78,8 @@ def vertex_stage(positions, normals, uvs, vtx_obj, models, normal_mats, viewproj
 
     world_h = jnp.stack([row4(0), row4(4), row4(8), row4(12)], axis=-1)
     world = world_h[:, :3]
-    clip = world_h @ viewproj.T
+    # Full f32: a TF32 product would move vertices by about a pixel.
+    clip = jnp.matmul(world_h, viewproj.T, precision=jax.lax.Precision.HIGHEST)
     nx, ny, nz = normals[:, 0], normals[:, 1], normals[:, 2]
 
     def nrow(c):
@@ -245,8 +245,8 @@ def scene_setup_depth(
     clip corners instead) — and computes the clip transform with the same
     explicit lane-FMA order as scene_setup_slots_depth, so single-slot and
     stacked-slot depth setups are bit-identical by construction (scene_setup
-    uses a `world_h @ viewproj.T` dot whose TPU lowering may accumulate
-    differently; depth consumers are re-goldened on this path).
+    uses a `world_h @ viewproj.T` dot that may accumulate in another order;
+    depth consumers are re-goldened on this path).
     TriSetup.wp/nw/uv come back zero-width."""
     world_h = vertex_stage_world(positions, vtx_obj, models)
     wx, wy, wz, ww = (world_h[:, 0], world_h[:, 1], world_h[:, 2],
@@ -356,7 +356,7 @@ def scene_setup_slots(
     viewprojs: (S, 4, 4); obj_visible_slots: optional (S, O) per-slot object
     masks.  Returns a TriSetup whose fields carry a leading (S,) slot dim.
 
-    Equivalent to vmapping scene_setup over slots but restructured for TPU:
+    Equivalent to vmapping scene_setup over slots but restructured:
     the world transform and per-corner attribute gather run ONCE (they are
     view-independent), per-slot clip positions come from one flat offset row
     gather (vmapped gathers lower to slow batched-gather HLO), and the
@@ -368,10 +368,9 @@ def scene_setup_slots(
         positions, normals, uvs, vtx_obj, models, normal_mats,
         jnp.eye(4, dtype=jnp.float32),
     )
-    # Per-slot clip transform as explicit lane FMAs over (S, V) planes: the
-    # einsum form ("vc,src->svr") lowers to K=4 MXU-padded batched matmuls
-    # (the same pathology vertex_stage documents — ~10ms at 72K verts for
-    # what the VPU does in <1ms).
+    # Per-slot clip transform as explicit FMAs over (S, V) planes (one
+    # fused elementwise pass, as in vertex_stage) instead of an
+    # ("vc,src->svr") einsum of K=4 batched matmuls.
     wx, wy, wz = world[:, 0][None], world[:, 1][None], world[:, 2][None]
 
     def crow(r):
@@ -621,7 +620,7 @@ def scene_setup(
     """Full geometry front-end: vertex stage + clip + setup, jit-friendly.
 
     obj_visible: optional (O,) bool mask (frustum/occlusion culling output)
-    folded into triangle validity — the TPU form of per-item culling.
+    folded into triangle validity — the array form of per-item culling.
     """
     world, clip_v, n_ws = vertex_stage(
         positions, normals, uvs, vtx_obj, models, normal_mats, viewproj

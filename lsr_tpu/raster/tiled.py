@@ -1,239 +1,53 @@
-"""Tiled Pallas rasterizer: the hot kernel of the framework.
+"""Tiled rasterizer: the hot kernel of the framework (Pallas, Triton route).
 
-Design (the TPU re-expression of the reference's screen-tile parallelism,
-draw_triangle_tile / hello_pipeline_blinn_phong_shading.cpp:189):
+Design (the reference's screen-tile parallelism, draw_triangle_tile /
+hello_pipeline_blinn_phong_shading.cpp:189, laid out for a GPU):
 
-1. *Binning* (plain XLA): each post-clip triangle's screen bbox is tested
-   against the tile grid; per-tile triangle index lists (capped, padded,
-   submission-ordered) are built with a cumsum + scatter.  The per-triangle
-   setup records are then gathered per tile so the kernel reads only
-   contiguous VMEM blocks — no dynamic indexing inside the kernel.
+1. *Binning* (plain XLA): triangles are grouped into chunks of 16 and
+   supers of 256 in submission order (or in screen-tile order with
+   `spatial_sort`).  Each screen tile gets the list of supers whose bbox
+   overlaps it: a (tiles x supers) mask compacted with a cumsum + scatter.
+   The list capacity is the number of supers, so a list can never overflow.
 
-2. *Raster kernel* (Pallas, grid = tile grid): each program owns one
-   (TILE_H, TILE_W) framebuffer tile — the same disjoint-ownership trick the
-   reference uses for lock-free z-buffering, but with the tile's triangle
-   list processed in vectorized chunks: barycentric evaluation is a fused
-   broadcast FMA over (chunk, TILE_H, TILE_W), and the z-buffer resolves via
-   min-reductions with first-submission tie-breaking (matching the
-   sequential `z01 >= zbuf -> skip` rule, rasterizer.hpp:362-365).
+2. *Raster kernel* (one program per power-of-two screen tile): each program
+   owns its (tile_h, tile_w) block of the depth and id buffers — the same
+   disjoint-ownership trick the reference uses for lock-free z-buffering.
+   It walks its super list; for each chunk whose bbox touches the tile, and
+   each triangle of the chunk whose bbox touches it, it loads the
+   triangle's setup record as scalars from device memory and updates the
+   tile's depth and id in registers.  The buffers are read once and stored
+   once.  Triangles are visited in ascending order, so the sequential
+   `z01 >= zbuf -> skip` rule (rasterizer.hpp:362-365) is reproduced exactly
+   by a strict less-than; sorted rasters resolve exact ties by the lower
+   triangle id instead, which gives the same winner.
 
 Output is the visibility buffer (depth01, tri id); attribute interpolation
 and shading are separate fullscreen passes (raster/interp.py).
 
-Setup record layout (16 f32 lanes per triangle):
-  [0:9]  barycentric affine coefficients A0,B0,C0,A1,B1,C1,A2,B2,C2
-  [9:12] per-corner 1/w
-  [12:15] per-corner z_ndc/w (used by DEPTH_NDC01 / ortho shadow mode)
-  [15]   triangle id as f32 (-1 = invalid; exact below 2^24 triangles)
+Setup records are stored field-major, (20, N) f32:
+  [0:9]   barycentric affine coefficients A0,B0,C0,A1,B1,C1,A2,B2,C2
+  [9:12]  per-corner 1/w
+  [12:15] per-corner z_ndc/w (DEPTH_NDC01 / ortho shadow mode)
+  [15]    triangle id as f32 (-1 = invalid; exact below 2^24 triangles)
+  [16:20] screen bbox x0, y0, x1, y1 (inclusive)
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from lsr_tpu.raster.setup import DEPTH_NDC01, DEPTH_VIEWZ, TriSetup
+from lsr_tpu.core.device import kernel_interpret
+from lsr_tpu.core.util import cdiv
+from lsr_tpu.raster.setup import DEPTH_VIEWZ, TriSetup
 
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def default_interpret() -> bool:
-    """Pallas kernels run compiled on TPU, interpreted elsewhere (tests/CPU)."""
-    return jax.default_backend() != "tpu"
-
-
-# ---------------------------------------------------------------------------
-# Binning
-# ---------------------------------------------------------------------------
-
-@functools.partial(
-    jax.jit, static_argnames=("width", "height", "tile_h", "tile_w", "cap")
-)
-def bin_triangles(setup: TriSetup, width, height, tile_h, tile_w, cap,
-                  y_offset=0):
-    """Build per-tile triangle lists.
-
-    Returns (lists (num_tiles, cap) i32 with -1 padding, counts (num_tiles,),
-    max_count scalar for overflow monitoring).  Lists preserve submission
-    order (required for the first-wins depth tie rule).
-
-    y_offset: global row of this target's first row (screen-space sharding:
-    each device rasterizes a horizontal band of the full framebuffer).
-    """
-    tiles_x = _cdiv(width, tile_w)
-    tiles_y = _cdiv(height, tile_h)
-    num_tiles = tiles_x * tiles_y
-    n = setup.coef.shape[0]
-
-    bb = setup.bbox
-    tx0 = bb[:, 0] // tile_w
-    ty0 = jnp.floor_divide(bb[:, 1] - y_offset, tile_h)
-    tx1 = bb[:, 2] // tile_w
-    ty1 = jnp.floor_divide(bb[:, 3] - y_offset, tile_h)
-
-    tx = jnp.arange(tiles_x, dtype=jnp.int32)
-    ty = jnp.arange(tiles_y, dtype=jnp.int32)
-    ox = (tx0[None, :] <= tx[:, None]) & (tx[:, None] <= tx1[None, :])  # (tiles_x, N)
-    oy = (ty0[None, :] <= ty[:, None]) & (ty[:, None] <= ty1[None, :])  # (tiles_y, N)
-    mask = (oy[:, None, :] & ox[None, :, :]) & setup.valid[None, None, :]
-    mask = mask.reshape(num_tiles, n)
-
-    pos = jnp.cumsum(mask, axis=1, dtype=jnp.int32) - 1       # (num_tiles, N)
-    counts = jnp.sum(mask, axis=1, dtype=jnp.int32)           # (num_tiles,)
-    keep = mask & (pos < cap)
-
-    tile_base = (jnp.arange(num_tiles, dtype=jnp.int32) * cap)[:, None]
-    flat_target = jnp.where(keep, tile_base + pos, num_tiles * cap)
-    tri_ids = jnp.broadcast_to(jnp.arange(n, dtype=jnp.int32)[None, :], (num_tiles, n))
-
-    lists = jnp.full((num_tiles * cap,), -1, jnp.int32)
-    lists = lists.at[flat_target.reshape(-1)].set(tri_ids.reshape(-1), mode="drop")
-    return lists.reshape(num_tiles, cap), jnp.minimum(counts, cap), jnp.max(counts)
-
-
-def pack_tile_setup(setup: TriSetup, lists):
-    """Gather per-triangle records into per-tile (cap, 16) blocks."""
-    safe = jnp.maximum(lists, 0)                 # (num_tiles, cap)
-    tid_f = jnp.where(lists >= 0, lists, -1).astype(jnp.float32)
-    rec = jnp.concatenate(
-        [
-            setup.coef,                          # (N, 9)
-            setup.iw,                            # (N, 3)
-            setup.ziw,                           # (N, 3)
-            jnp.zeros((setup.coef.shape[0], 1), jnp.float32),
-        ],
-        axis=-1,
-    )                                            # (N, 16)
-    from lsr_tpu.core.gather import take_rows
-
-    tile_rec = take_rows(rec, safe)              # (num_tiles, cap, 16)
-    tile_rec = tile_rec.at[..., 15].set(tid_f)
-    return tile_rec
-
-
-# ---------------------------------------------------------------------------
-# Kernel
-# ---------------------------------------------------------------------------
-
-def _raster_kernel(
-    counts_ref,  # (num_tiles,) i32 scalar-prefetch: triangles per tile list
-    z_ref,       # (1, 128) f32 VMEM: [0]=zn, [1]=inv_range (rest padding)
-    setup_ref,   # (1, cap, 16) f32 VMEM
-    depth_in,    # (TILE_H, TILE_W) f32
-    tid_in,      # (TILE_H, TILE_W) i32
-    depth_out,
-    tid_out,
-    *,
-    width: int,
-    height: int,
-    tile_h: int,
-    tile_w: int,
-    cap: int,
-    chunk: int,
-    depth_mode: int,
-    tiles_x: int,
-):
-    tyi = pl.program_id(0)
-    txi = pl.program_id(1)
-    x0 = (txi * tile_w).astype(jnp.float32)
-    y0 = (tyi * tile_h).astype(jnp.float32) + z_ref[0, 2]  # + global row offset
-
-    col = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1).astype(jnp.float32)
-    row = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0).astype(jnp.float32)
-    px = x0 + col + 0.5  # pixel centers (rasterizer.hpp:336)
-    py = y0 + row + 0.5
-    # NDC coverage bound (see raster/brute.py): last row/col never covered.
-    ndc_ok = (px <= float(width - 1)) & (py <= z_ref[0, 3])
-
-    pxb = px[None]  # (1, TILE_H, TILE_W)
-    pyb = py[None]
-
-    zn = z_ref[0, 0]
-    inv_range = z_ref[0, 1]
-    count = counts_ref[tyi * tiles_x + txi]
-
-    kids = jax.lax.broadcasted_iota(jnp.int32, (chunk, 1, 1), 0).astype(jnp.float32)
-    big = jnp.float32(1e9)
-
-    def chunk_body(ci, carry):
-        depth, tid = carry
-
-        def live(carry):
-            depth, tid = carry
-            base = pl.multiple_of(ci * chunk, chunk)
-            blk = setup_ref[0, pl.ds(base, chunk), :]  # (chunk, 16)
-
-            def f(j):
-                return blk[:, j].reshape(chunk, 1, 1)
-
-            bc0 = f(0) * pxb + f(1) * pyb + f(2)
-            bc1 = f(3) * pxb + f(4) * pyb + f(5)
-            bc2 = f(6) * pxb + f(7) * pyb + f(8)
-            tidv = f(15)
-            inside = (
-                (bc0 >= 0.0) & (bc1 >= 0.0) & (bc2 >= 0.0)
-                & (tidv >= 0.0) & ndc_ok[None]
-            )
-            denom = bc0 * f(9) + bc1 * f(10) + bc2 * f(11)
-            inside &= denom > 1e-10
-            if depth_mode == DEPTH_VIEWZ:
-                view_z = 1.0 / jnp.maximum(denom, 1e-10)
-                z01 = jnp.clip((view_z - zn) * inv_range, 0.0, 1.0)
-            else:
-                zlin = (bc0 * f(12) + bc1 * f(13) + bc2 * f(14)) / jnp.maximum(
-                    denom, 1e-10
-                )
-                z01 = jnp.clip(zlin * 0.5 + 0.5, 0.0, 1.0)
-
-            cand = jnp.where(inside, z01, 2.0)
-            best = jnp.min(cand, axis=0)  # (TILE_H, TILE_W)
-            # First-submitted among equal-depth: min list position wins.
-            isbest = cand == best[None]
-            win_k = jnp.min(jnp.where(isbest, kids, big), axis=0)
-            win_tid = jnp.max(
-                jnp.where(kids == win_k[None], tidv, -big), axis=0
-            )
-            upd = best < depth  # strict: earlier submissions keep ties
-            depth = jnp.where(upd, best, depth)
-            tid = jnp.where(upd, win_tid.astype(jnp.int32), tid)
-            return depth, tid
-
-        return live(carry)
-
-    # Dynamic trip count: tiles only pay for their actual triangle load
-    # (the padded cap would otherwise cost cap/chunk iterations per tile).
-    n_chunks = jnp.minimum(pl.cdiv(count, chunk), cap // chunk)
-    depth, tid = jax.lax.fori_loop(
-        0, n_chunks, chunk_body, (depth_in[:, :], tid_in[:, :])
-    )
-    depth_out[:, :] = depth
-    tid_out[:, :] = tid
-
-
-# ---------------------------------------------------------------------------
-# Direct (listless) kernel: full setup in VMEM + 2-level bbox rejection
-# ---------------------------------------------------------------------------
-#
-# Per-triangle binning costs a (tiles x N) scatter (~120ms at 50K tris on
-# v5e).  The direct strategy removes it: the whole packed setup (N x 16 f32)
-# sits in VMEM, triangles are grouped into chunks (8) and supers (256), and
-# each tile walks only the supers whose bbox overlaps it (super lists are
-# tiny: a (tiles x S) mask with S ~ N/256, so the scatter is ~1000x smaller).
-# Traversal order is ascending triangle id, preserving the reference's
-# first-submitted depth tie rule.
-
-_SUPER = 256  # triangles per super-chunk
-
-# Shadow/depth-raster spatial-sort knob (A/B'd on hardware by
-# scripts/dbg_shadowraster.py; depth output is bit-exact either way).
-SORT_DEPTH_SETUP = False
+_SUPER = 256   # triangles per super (the unit of the per-tile lists)
+_CHUNK = 16    # triangles per chunk (the unit of the in-kernel bbox skip)
+_FIELDS = 20
 
 
 def _chunk_bboxes(setup: TriSetup, n_pad: int, chunk: int):
@@ -257,10 +71,10 @@ def _chunk_bboxes(setup: TriSetup, n_pad: int, chunk: int):
 
 
 def _super_lists(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
-                 tile_w: int, tile_h: int, scap: int, y_offset):
-    """Per-tile overlapping-super lists from chunk bboxes.
-
-    Returns (lists (tiles, scap) i32 -1 pad, counts (tiles,), max_count)."""
+                 tile_w: int, tile_h: int, y_offset):
+    """Per-tile overlapping-super lists from chunk bboxes, in ascending
+    super order.  Returns (lists (tiles, S) i32 -1 pad, counts (tiles,),
+    max_count)."""
     cps = _SUPER // chunk
     s = chunk_bb.shape[0] // cps
     sb = chunk_bb.reshape(s, cps, 4)
@@ -277,213 +91,124 @@ def _super_lists(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
 
     pos = jnp.cumsum(mask, axis=1, dtype=jnp.int32) - 1
     counts = jnp.sum(mask, axis=1, dtype=jnp.int32)
-    keep = mask & (pos < scap)
-    base = (jnp.arange(tiles_y * tiles_x, dtype=jnp.int32) * scap)[:, None]
-    flat = jnp.where(keep, base + pos, tiles_y * tiles_x * scap)
+    base = (jnp.arange(tiles_y * tiles_x, dtype=jnp.int32) * s)[:, None]
+    flat = jnp.where(mask, base + pos, tiles_y * tiles_x * s)
     ids = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], mask.shape)
-    lists = jnp.full((tiles_y * tiles_x * scap,), -1, jnp.int32)
+    lists = jnp.full((tiles_y * tiles_x * s,), -1, jnp.int32)
     lists = lists.at[flat.reshape(-1)].set(ids.reshape(-1), mode="drop")
-    return lists.reshape(-1, scap), jnp.minimum(counts, scap), counts.max()
+    return lists.reshape(-1, s), counts, counts.max()
 
 
-def _direct_kernel(
-    counts_ref,  # (num_tiles,) i32 scalar-prefetch: supers per tile
-    slist_ref,   # (num_tiles * scap,) i32 scalar-prefetch: super lists
-    z_ref,       # (1, 128) f32: zn, inv_range, y_offset, max_py
-    rec_ref,     # (n_pad, 128) f32 in HBM: packed setup, 128-lane aligned
-                 # for DMA slicing (fields in lanes 0..15)
-    cbb_ref,     # (n_chunks, 4) f32 VMEM: chunk bboxes
+def _raster_kernel(
+    params_ref,  # (4,) f32: zn, 1/(zf-zn), y_offset, last coverable row
+    counts_ref,  # (tiles,) i32: supers per tile
+    slist_ref,   # (tiles * S,) i32: super lists
+    cbb_ref,     # (4, n_chunks) f32: chunk bboxes
+    rec_ref,     # (_FIELDS, n_pad) f32: setup records, field-major
     depth_in, tid_in, depth_out, tid_out,
-    sup_scratch,  # (2, _SUPER, 128) f32 VMEM scratch (double buffer)
-    dma_sem,      # DMA semaphore array (2,)
-    *, width, tile_h, tile_w, chunk, depth_mode, tiles_x, scap,
-    track_ids: bool = True,
-    band_h: int = 0,
-    sub_rows: int = 4,
-    tie_tid: bool = False,
+    *, width, tile_h, tile_w, chunk, depth_mode, tiles_x, n_super,
+    track_ids: bool, band_h: int, tie_tid: bool,
 ):
     tyi = pl.program_id(0)
     txi = pl.program_id(1)
+    zn = params_ref[0]
+    inv_range = params_ref[1]
     x0 = (txi * tile_w).astype(jnp.float32)
-    y0 = (tyi * tile_h).astype(jnp.float32) + z_ref[0, 2]
+    y0 = (tyi * tile_h).astype(jnp.float32) + params_ref[2]
     # Stacked-atlas mode (band_h > 0): slot setups are SLOT-LOCAL (their
-    # coefficients and the coverage bound assume rows [0, band_h)), only
+    # coefficients and the coverage bound assume rows [0, band_h)); only
     # their bboxes were shifted to global rows for binning.  Evaluating
-    # pixel rows band-locally keeps bc arithmetic BIT-IDENTICAL to a
-    # standalone per-slot raster (shifting C by B*offset instead rounds
-    # differently and flips edge pixels).
+    # pixel rows band-locally keeps the arithmetic identical to a
+    # standalone per-slot raster.
     if band_h:
-        y0_cov = (tyi * tile_h - (tyi * tile_h) // band_h * band_h
-                  ).astype(jnp.float32)
+        y0_cov = ((tyi * tile_h) % band_h).astype(jnp.float32)
         max_py = jnp.float32(band_h - 1)
     else:
         y0_cov = y0
-        max_py = z_ref[0, 3]
+        max_py = params_ref[3]
 
-    col = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1).astype(jnp.float32)
-    row = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0).astype(jnp.float32)
-    px = x0 + col + 0.5
-    py = y0_cov + row + 0.5
+    col = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1)
+    row = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0)
+    px = x0 + col.astype(jnp.float32) + 0.5  # pixel centers (rasterizer.hpp:336)
+    py = y0_cov + row.astype(jnp.float32) + 0.5
+    # NDC coverage bound (see raster/brute.py): last row/col never covered.
     ndc_ok = (px <= float(width - 1)) & (py <= max_py)
-    pxb = px[None]
-    pyb = py[None]
 
-    zn = z_ref[0, 0]
-    inv_range = z_ref[0, 1]
-    n_sup = counts_ref[tyi * tiles_x + txi]
+    xmax = x0 + (tile_w - 1)
+    ymax = y0 + (tile_h - 1)
 
-    tile_xmin = x0
-    tile_xmax = x0 + (tile_w - 1)
-    tile_ymin = y0
-    tile_ymax = y0 + (tile_h - 1)
+    def overlaps(bx0, by0, bx1, by1):
+        return (bx0 <= xmax) & (bx1 >= x0) & (by0 <= ymax) & (by1 >= y0)
 
-    kids = jax.lax.broadcasted_iota(jnp.int32, (chunk, 1, 1), 0).astype(jnp.float32)
-    big = jnp.float32(1e9)
-    cps = _SUPER // chunk
-
-    # Sub-tile row blocks: a chunk only evaluates the row band its bbox
-    # overlaps (small triangles waste ~tile_area/tri_area otherwise).
-    # Each sub-block is a separate loop-carried buffer so the skip is a pure
-    # scalar cond (no slicing/concat of carried vectors, which Mosaic
-    # handles poorly).  sub_rows is tunable per target (finer bands pay off
-    # on dense small-triangle depth targets once chunks are spatially
-    # sorted; A/B'd in scripts/dbg_local.py r3ab).
-    n_sub = sub_rows if (tile_h % (8 * sub_rows) == 0) else 1
-    sub_h = tile_h // n_sub
-
-    sub_px = []
-    sub_py = []
-    for sub in range(n_sub):
-        col_s = jax.lax.broadcasted_iota(jnp.int32, (sub_h, tile_w), 1)
-        row_s = jax.lax.broadcasted_iota(jnp.int32, (sub_h, tile_w), 0)
-        sub_px.append((x0 + col_s.astype(jnp.float32) + 0.5)[None])
-        sub_py.append(
-            (y0_cov + (sub * sub_h) + row_s.astype(jnp.float32) + 0.5)[None]
-        )
-
-    def process_sub(slot, c_local, sub, d_s, t_s):
-        base = pl.multiple_of(c_local * chunk, chunk)
-        blk = sup_scratch[slot, pl.ds(base, chunk), :]
-
+    def raster_tri(i, carry):
         def f(j):
-            return blk[:, j].reshape(chunk, 1, 1)
+            return rec_ref[j, i]
 
-        pxs = sub_px[sub]
-        pys = sub_py[sub]
-        ndc_s = (pxs <= float(width - 1)) & (pys <= max_py)
-        bc0 = f(0) * pxs + f(1) * pys + f(2)
-        bc1 = f(3) * pxs + f(4) * pys + f(5)
-        bc2 = f(6) * pxs + f(7) * pys + f(8)
-        tidv = f(15)
-        inside = (
-            (bc0 >= 0.0) & (bc1 >= 0.0) & (bc2 >= 0.0)
-            & (tidv >= 0.0) & ndc_s
-        )
+        bc0 = f(0) * px + f(1) * py + f(2)
+        bc1 = f(3) * px + f(4) * py + f(5)
+        bc2 = f(6) * px + f(7) * py + f(8)
         denom = bc0 * f(9) + bc1 * f(10) + bc2 * f(11)
-        inside &= denom > 1e-10
+        inside = ((bc0 >= 0.0) & (bc1 >= 0.0) & (bc2 >= 0.0) & ndc_ok
+                  & (denom > 1e-10))
         if depth_mode == DEPTH_VIEWZ:
             view_z = 1.0 / jnp.maximum(denom, 1e-10)
             z01 = jnp.clip((view_z - zn) * inv_range, 0.0, 1.0)
         else:
             zlin = (bc0 * f(12) + bc1 * f(13) + bc2 * f(14)) / jnp.maximum(
-                denom, 1e-10
-            )
+                denom, 1e-10)
             z01 = jnp.clip(zlin * 0.5 + 0.5, 0.0, 1.0)
-
-        cand = jnp.where(inside, z01, 2.0)
-        best = jnp.min(cand, axis=0)
         if not track_ids:
-            # Depth-only (shadow maps): pure min resolve, no winner id.
-            return jnp.minimum(best, d_s), t_s
-        isbest = cand == best[None]
+            # Depth-only (shadow maps, occluders): pure min resolve.
+            return jnp.where(inside, jnp.minimum(z01, carry), carry)
+        depth, tid = carry
+        t = f(15).astype(jnp.int32)
+        upd = z01 < depth
         if tie_tid:
-            # Order-independent resolve: min (depth, tid) lexicographic.
-            # Unsorted submission is tid-ascending, so its first-wins rule
-            # ALREADY picks the min tid among equal-depth candidates —
-            # this reproduces that exact result from any traversal order,
-            # which is what makes spatial_sort legal for id-tracked
-            # rasters.  (best==2.0 "no coverage" chunks can't tie: d_s
-            # starts at the 1.0 background and z01 is clipped to [0,1].)
-            win_tid = jnp.min(jnp.where(isbest, tidv, big), axis=0)
-            upd = (best < d_s) | ((best == d_s)
-                                  & (win_tid < t_s.astype(jnp.float32)))
-        else:
-            win_k = jnp.min(jnp.where(isbest, kids, big), axis=0)
-            win_tid = jnp.max(jnp.where(kids == win_k[None], tidv, -big),
-                              axis=0)
-            upd = best < d_s
-        d_new = jnp.where(upd, best, d_s)
-        t_new = jnp.where(upd, win_tid.astype(jnp.int32), t_s)
-        return d_new, t_new
+            # Order-independent resolve: min (depth, tid) lexicographic,
+            # which equals the unsorted first-wins result because unsorted
+            # submission is tid-ascending.
+            upd = upd | ((z01 == depth) & (t < tid))
+        upd = upd & inside
+        return jnp.where(upd, z01, depth), jnp.where(upd, t, tid)
 
+    def tri_body(i, carry):
+        hit = (rec_ref[15, i] >= 0.0) & overlaps(
+            rec_ref[16, i], rec_ref[17, i], rec_ref[18, i], rec_ref[19, i])
+        return jax.lax.cond(hit, functools.partial(raster_tri, i),
+                            lambda c: c, carry)
+
+    def chunk_body(c, carry):
+        hit = overlaps(cbb_ref[0, c], cbb_ref[1, c], cbb_ref[2, c],
+                       cbb_ref[3, c])
+        return jax.lax.cond(
+            hit,
+            lambda cr: jax.lax.fori_loop(c * chunk, (c + 1) * chunk,
+                                         tri_body, cr),
+            lambda cr: cr, carry)
+
+    cps = _SUPER // chunk
     t_lin = tyi * tiles_x + txi
 
-    # Double-buffered super fetch: prefetch super i+1's 128KB setup block
-    # while super i computes, hiding the HBM DMA behind the chunk loops
-    # (same slot/sem rotation as the chunk-worklist kernel below).
-    def get_sup_dma(slot, s):
-        return pltpu.make_async_copy(
-            rec_ref.at[pl.ds(pl.multiple_of(s * _SUPER, _SUPER), _SUPER), :],
-            sup_scratch.at[slot],
-            dma_sem.at[slot],
-        )
+    def sup_body(k, carry):
+        s = slist_ref[t_lin * n_super + k]
+        return jax.lax.fori_loop(s * cps, (s + 1) * cps, chunk_body, carry)
 
-    @pl.when(n_sup > 0)
-    def _():
-        get_sup_dma(0, slist_ref[t_lin * scap]).start()
-
-    def sup_body(i, carry):
-        s = slist_ref[t_lin * scap + i]
-        slot = jax.lax.rem(i, 2)
-
-        @pl.when(i + 1 < n_sup)
-        def _():
-            get_sup_dma(1 - slot, slist_ref[t_lin * scap + i + 1]).start()
-
-        get_sup_dma(slot, s).wait()
-
-        def chunk_body(j, carry):
-            c = s * cps + j
-            bx0 = cbb_ref[c, 0]
-            by0 = cbb_ref[c, 1]
-            bx1 = cbb_ref[c, 2]
-            by1 = cbb_ref[c, 3]
-            hit_x = (bx0 <= tile_xmax) & (bx1 >= tile_xmin)
-            out = list(carry)
-            for sub in range(n_sub):
-                ylo = tile_ymin + sub * sub_h
-                yhi = ylo + (sub_h - 1)
-                hit = hit_x & (by0 <= yhi) & (by1 >= ylo)
-                out[2 * sub], out[2 * sub + 1] = jax.lax.cond(
-                    hit,
-                    lambda d, t, j=j, sub=sub: process_sub(slot, j, sub,
-                                                           d, t),
-                    lambda d, t: (d, t),
-                    out[2 * sub], out[2 * sub + 1],
-                )
-            return tuple(out)
-
-        return jax.lax.fori_loop(0, cps, chunk_body, carry)
-
-    init = []
-    for sub in range(n_sub):
-        lo = sub * sub_h
-        init.append(depth_in[lo:lo + sub_h, :])
-        init.append(tid_in[lo:lo + sub_h, :])
-
-    final = jax.lax.fori_loop(0, n_sup, sup_body, tuple(init))
-    for sub in range(n_sub):
-        lo = sub * sub_h
-        depth_out[lo:lo + sub_h, :] = final[2 * sub]
-        tid_out[lo:lo + sub_h, :] = final[2 * sub + 1]
+    n_sup = counts_ref[t_lin]
+    if track_ids:
+        depth, tid = jax.lax.fori_loop(0, n_sup, sup_body,
+                                       (depth_in[...], tid_in[...]))
+    else:
+        depth = jax.lax.fori_loop(0, n_sup, sup_body, depth_in[...])
+        tid = tid_in[...]
+    depth_out[...] = depth
+    tid_out[...] = tid
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "width", "height", "depth_mode", "tile_h", "tile_w", "chunk",
-        "scap", "interpret", "track_ids", "band_h", "spatial_sort",
-        "sub_rows",
+        "width", "height", "depth_mode", "tile_h", "tile_w",
+        "track_ids", "band_h", "spatial_sort", "full_height",
     ),
 )
 def rasterize_direct(
@@ -495,61 +220,54 @@ def rasterize_direct(
     depth_init=None,
     tid_init=None,
     depth_mode: int = DEPTH_VIEWZ,
-    # 128x128 tiles measured fastest for both the main view (12.0 vs 13.8
-    # ms at 1080p) and square depth-only targets (19.9 vs 23.7 ms at
-    # 2048^2), bit-exact vs 64x128 (scripts/dbg_mainraster.py,
-    # dbg_shadowraster.py).
-    tile_h: int = 128,
-    tile_w: int = 128,
-    chunk: int = 16,
-    scap: int = 128,
-    interpret: bool | None = None,
+    tile_h: int = 32,
+    tile_w: int = 32,
     y_offset=0,
     full_height: int | None = None,
     track_ids: bool = True,
     band_h: int = 0,
     spatial_sort: bool = False,
-    sub_rows: int = 4,
 ):
-    """Listless tiled rasterization.
+    """Tiled rasterization of `setup` into a (height, width) target.
 
     track_ids=False skips winner-id tracking (depth-only passes like shadow
-    maps: ~25% fewer ops per triangle-pixel).
+    maps); the returned tid is then `tid_init` unchanged.
+
+    y_offset/full_height render global rows [y_offset, y_offset + height)
+    of a full_height framebuffer (screen-space row bands).
+
+    band_h > 0: the target is a stack of band_h-row slots whose setups are
+    slot-local (lighting/local_shadows._stack_slot_setups); band_h must be
+    a multiple of tile_h.
 
     spatial_sort=True reorders setup rows by bbox-center tile before
-    chunking, so chunk/super bboxes are TIGHT and each (chunk, tile) pair
-    is evaluated far less often when the input triangle order is spatially
-    scattered.  Emitted tids still index the CALLER's setup rows.  Depth
-    output is bit-exact either way (pure min resolve), and tid too: sorted
-    rasters resolve exact z ties by MIN TID (lexicographic), which equals
-    the unsorted path's first-wins rule because unsorted submission is
-    tid-ascending.  (Only callers that pass a non-background tid_init AND
-    sort see a different tie rule: min tid instead of keep-initial.)  Not
-    supported with band_h (sorting would mix slots inside one chunk,
-    breaking the stacked-atlas slot invariant).
+    chunking, so chunk and super bboxes are tight when the input order is
+    spatially scattered.  Emitted tids still index the CALLER's setup rows.
+    Depth is identical either way (min resolve), and so are tids: sorted
+    rasters resolve exact z ties by min tid, which equals the unsorted
+    first-wins rule.  (Only callers that pass a non-background tid_init AND
+    sort see min tid instead of keep-initial on ties.)  Not supported with
+    band_h (sorting would mix slots inside one chunk).
 
-    Returns (depth01, tid, max_supers_per_tile) — if max_supers exceeds
-    `scap`, super lists overflowed and scap must be raised.
+    Returns (depth01, tid, max_supers_per_tile).
     """
-    if interpret is None:
-        interpret = default_interpret()
     if full_height is None:
         full_height = height
-    tiles_x = _cdiv(width, tile_w)
-    tiles_y = _cdiv(height, tile_h)
-    num_tiles = tiles_x * tiles_y
+    for t in (tile_h, tile_w):
+        assert t & (t - 1) == 0, "tile sides must be powers of two"
+    if band_h:
+        assert band_h % tile_h == 0, "stacked bands must align to tiles"
+        assert not spatial_sort, "spatial_sort breaks stacked-band slots"
+    chunk = _CHUNK
+    tiles_x = cdiv(width, tile_w)
+    tiles_y = cdiv(height, tile_h)
     ph, pw = tiles_y * tile_h, tiles_x * tile_w
 
-    # Super lists live in SMEM (~1MB total on v5e); clamp the per-tile cap so
-    # counts + lists fit with headroom.  Overflow shows up in max_sup.
-    smem_int_budget = 700_000 // 4
-    scap = max(8, min(scap, (smem_int_budget - num_tiles) // num_tiles))
-
     n = setup.coef.shape[0]
-    n_pad = _cdiv(n, _SUPER) * _SUPER
+    n_pad = cdiv(max(n, 1), _SUPER) * _SUPER
+    n_super = n_pad // _SUPER
 
     if spatial_sort:
-        assert not band_h, "spatial_sort breaks stacked-band slot chunks"
         cx = (setup.bbox[:, 0] + setup.bbox[:, 2]) // 2
         cy = (setup.bbox[:, 1] + setup.bbox[:, 3]) // 2
         key = (cy // tile_h) * jnp.int32(1 << 15) + (cx // tile_w)
@@ -562,14 +280,15 @@ def rasterize_direct(
         tid_f = jnp.where(setup.valid, jnp.arange(n, dtype=jnp.float32),
                           -1.0)
     rec = jnp.concatenate(
-        [setup.coef, setup.iw, setup.ziw, tid_f[:, None]], axis=-1
-    )
-    rec = jnp.pad(rec, ((0, n_pad - n), (0, 112)))  # lane-align to 128
-    rec = rec.at[n:, 15].set(-1.0) if n_pad > n else rec
+        [setup.coef, setup.iw, setup.ziw, tid_f[:, None],
+         setup.bbox.astype(jnp.float32)], axis=-1)
+    pad_row = jnp.zeros((_FIELDS,), jnp.float32).at[15].set(-1.0)
+    rec = jnp.concatenate(
+        [rec, jnp.broadcast_to(pad_row, (n_pad - n, _FIELDS))], axis=0).T
 
     chunk_bb = _chunk_bboxes(setup, n_pad, chunk)
     slists, counts, max_sup = _super_lists(
-        chunk_bb, chunk, tiles_x, tiles_y, tile_w, tile_h, scap,
+        chunk_bb, chunk, tiles_x, tiles_y, tile_w, tile_h,
         jnp.asarray(y_offset, jnp.float32),
     )
 
@@ -582,449 +301,35 @@ def rasterize_direct(
     tpad = jnp.pad(tid_init, ((0, ph - height), (0, pw - width)),
                    constant_values=-1)
 
-    zparams = jnp.zeros((1, 128), jnp.float32)
-    zparams = (
-        zparams.at[0, 0].set(zn)
-        .at[0, 1].set(1.0 / jnp.maximum(zf - zn, 1e-6))
-        .at[0, 2].set(jnp.asarray(y_offset, jnp.float32))
-        .at[0, 3].set(jnp.float32(full_height - 1))
-    )
+    params = jnp.stack([
+        jnp.asarray(zn, jnp.float32),
+        1.0 / jnp.maximum(jnp.asarray(zf - zn, jnp.float32), 1e-6),
+        jnp.asarray(y_offset, jnp.float32),
+        jnp.float32(full_height - 1),
+    ])
 
-    if band_h:
-        assert band_h % tile_h == 0, "stacked bands must align to tiles"
     kern = functools.partial(
-        _direct_kernel,
+        _raster_kernel,
         width=width, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
-        depth_mode=depth_mode, tiles_x=tiles_x, scap=scap,
-        track_ids=track_ids, band_h=band_h, sub_rows=sub_rows,
-        tie_tid=spatial_sort,
+        depth_mode=depth_mode, tiles_x=tiles_x, n_super=n_super,
+        track_ids=track_ids, band_h=band_h, tie_tid=spatial_sort,
     )
-    tile_block = lambda: pl.BlockSpec(  # noqa: E731
-        (tile_h, tile_w), lambda i, j, c, s: (i, j), memory_space=pltpu.VMEM
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(tiles_y, tiles_x),
-        in_specs=[
-            pl.BlockSpec((1, 128), lambda i, j, c, s: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),  # setup stays in HBM
-            pl.BlockSpec((n_pad // chunk, 4), lambda i, j, c, s: (0, 0),
-                         memory_space=pltpu.VMEM),
-            tile_block(),
-            tile_block(),
-        ],
-        out_specs=(tile_block(), tile_block()),
-        scratch_shapes=[
-            pltpu.VMEM((2, _SUPER, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
+    whole = pl.BlockSpec(None, None)
+    tile = pl.BlockSpec((tile_h, tile_w), lambda i, j: (i, j))
     depth, tid = pl.pallas_call(
         kern,
-        grid_spec=grid_spec,
+        grid=(tiles_y, tiles_x),
+        in_specs=[whole, whole, whole, whole, whole, tile, tile],
+        out_specs=(tile, tile),
         out_shape=(
             jax.ShapeDtypeStruct((ph, pw), jnp.float32),
             jax.ShapeDtypeStruct((ph, pw), jnp.int32),
         ),
         input_output_aliases={5: 0, 6: 1},
-        interpret=interpret,
-    )(counts, slists.reshape(-1), zparams, rec, chunk_bb, dpad, tpad)
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        backend="triton",
+        interpret=kernel_interpret(),
+        name="lsr_raster",
+    )(params, counts, slists.reshape(-1), chunk_bb.T, rec, dpad, tpad)
 
     return depth[:height, :width], tid[:height, :width], max_sup
-
-
-# ---------------------------------------------------------------------------
-# Chunk-list kernel: per-tile chunk worklists + banded row processing
-# ---------------------------------------------------------------------------
-#
-# The direct kernel's per-tile cost is dominated by SCALAR control flow: for
-# every overlapping super it runs 16 chunk iterations x 4 sub-block lax.conds
-# (~64 branches per super visit) whether or not the chunks overlap the tile.
-# The chunk-list kernel moves that decision to binning time: per tile it
-# stores a worklist of (chunk id, row-band range) entries — only chunks that
-# really overlap — and the kernel walks the list with double-buffered 8KB
-# record DMAs, processing each chunk only over the `sub_h`-row bands its bbox
-# covers (dynamic-offset VMEM slices, no conds).  Entry encoding (see
-# _chunk_lists): id << 5 | band_start << 2 | (band_count - 1).
-
-_BAND_BITS = 5  # low bits reserved for (band_start, band_count - 1)
-
-
-def _chunk_lists(setup: TriSetup, n_pad: int, chunk: int, tiles_x: int,
-                 tiles_y: int, tile_w: int, tile_h: int, ccap: int,
-                 y_offset, sub_h: int):
-    """Per-tile overlapping-chunk worklists with packed row-band info.
-
-    Returns (lists (tiles, ccap) i32, counts (tiles,), max_count).  Entries
-    are ordered by ascending chunk id (the first-submitted depth-tie rule)."""
-    cbb = _chunk_bboxes(setup, n_pad, chunk)       # (n_chunks, 4) f32
-    n_chunks = cbb.shape[0]
-    x0 = cbb[:, 0]
-    y0 = cbb[:, 1] - y_offset
-    x1 = cbb[:, 2]
-    y1 = cbb[:, 3] - y_offset
-
-    tx = jnp.arange(tiles_x, dtype=jnp.float32) * tile_w
-    ty = jnp.arange(tiles_y, dtype=jnp.float32) * tile_h
-    ox = (x0[None, :] <= tx[:, None] + (tile_w - 1)) & (x1[None, :] >= tx[:, None])
-    oy = (y0[None, :] <= ty[:, None] + (tile_h - 1)) & (y1[None, :] >= ty[:, None])
-    mask = (oy[:, None, :] & ox[None, :, :]).reshape(tiles_y * tiles_x,
-                                                     n_chunks)
-
-    # Row-band range per (tile_row, chunk), in units of sub_h rows.
-    nb_max = tile_h // sub_h
-    rel0 = (y0[None, :] - ty[:, None]) / float(sub_h)      # (tiles_y, C)
-    rel1 = (y1[None, :] - ty[:, None]) / float(sub_h)
-    bs = jnp.clip(jnp.floor(rel0), 0, nb_max - 1).astype(jnp.int32)
-    be = jnp.clip(jnp.floor(rel1), 0, nb_max - 1).astype(jnp.int32)
-    cid = jnp.arange(n_chunks, dtype=jnp.int32)[None, :]
-    entry_row = (cid << _BAND_BITS) | (bs << 2) | (be - bs)  # (tiles_y, C)
-    entries = jnp.broadcast_to(entry_row[:, None, :],
-                               (tiles_y, tiles_x, n_chunks))
-    entries = entries.reshape(tiles_y * tiles_x, n_chunks)
-
-    pos = jnp.cumsum(mask, axis=1, dtype=jnp.int32) - 1
-    counts = jnp.sum(mask, axis=1, dtype=jnp.int32)
-    keep = mask & (pos < ccap)
-    base = (jnp.arange(tiles_y * tiles_x, dtype=jnp.int32) * ccap)[:, None]
-    flat = jnp.where(keep, base + pos, tiles_y * tiles_x * ccap)
-    lists = jnp.zeros((tiles_y * tiles_x * ccap,), jnp.int32)
-    lists = lists.at[flat.reshape(-1)].set(entries.reshape(-1), mode="drop")
-    return lists.reshape(-1, ccap), jnp.minimum(counts, ccap), counts.max()
-
-
-def _chunklist_kernel(
-    counts_ref,   # (num_tiles,) i32 scalar-prefetch: entries per tile
-    clist_ref,    # (num_tiles * ccap,) i32 scalar-prefetch: packed entries
-    z_ref,        # (1, 128) f32: zn, inv_range, y_offset, max_py
-    rec_ref,      # (n_pad, 128) f32 HBM: packed setup records
-    depth_in, tid_in, depth_out, tid_out,
-    buf,          # (2, chunk, 128) f32 VMEM scratch (double buffer)
-    sem,          # DMA semaphore array (2,)
-    *, width, tile_h, tile_w, chunk, depth_mode, tiles_x, ccap, sub_h,
-    track_ids: bool = True,
-):
-    tyi = pl.program_id(0)
-    txi = pl.program_id(1)
-    t_lin = tyi * tiles_x + txi
-    n = counts_ref[t_lin]
-
-    x0 = (txi * tile_w).astype(jnp.float32)
-    y0 = (tyi * tile_h).astype(jnp.float32) + z_ref[0, 2]
-    zn = z_ref[0, 0]
-    inv_range = z_ref[0, 1]
-
-    depth_out[:, :] = depth_in[:, :]
-    tid_out[:, :] = tid_in[:, :]
-
-    col = jax.lax.broadcasted_iota(jnp.int32, (sub_h, tile_w), 1)
-    row = jax.lax.broadcasted_iota(jnp.int32, (sub_h, tile_w), 0)
-    px = (x0 + col.astype(jnp.float32) + 0.5)[None]        # (1, sub_h, W)
-    rowf = row.astype(jnp.float32)[None]
-    x_ok = (px <= float(width - 1))
-    kids = jax.lax.broadcasted_iota(jnp.int32, (chunk, 1, 1), 0).astype(
-        jnp.float32)
-    big = jnp.float32(1e9)
-
-    def get_dma(slot, e):
-        c = jax.lax.shift_right_logical(e, _BAND_BITS)
-        return pltpu.make_async_copy(
-            rec_ref.at[pl.ds(c * chunk, chunk), :],
-            buf.at[slot],
-            sem.at[slot],
-        )
-
-    @pl.when(n > 0)
-    def _():
-        get_dma(0, clist_ref[t_lin * ccap]).start()
-
-    def entry_body(i, _):
-        e = clist_ref[t_lin * ccap + i]
-        slot = jax.lax.rem(i, 2)
-
-        @pl.when(i + 1 < n)
-        def _():
-            get_dma(1 - slot, clist_ref[t_lin * ccap + i + 1]).start()
-
-        get_dma(slot, e).wait()
-        blk = buf[slot]                                    # (chunk, 128)
-
-        def f(j):
-            return blk[:, j].reshape(chunk, 1, 1)
-
-        bs = jax.lax.shift_right_logical(e, 2) & 3
-        nb = (e & 3) + 1
-
-        def band_body(b, _):
-            off = pl.multiple_of((bs + b) * sub_h, sub_h)
-            pys = y0 + off.astype(jnp.float32) + rowf + 0.5
-            ndc_s = x_ok & (pys <= z_ref[0, 3])
-            bc0 = f(0) * px + f(1) * pys + f(2)
-            bc1 = f(3) * px + f(4) * pys + f(5)
-            bc2 = f(6) * px + f(7) * pys + f(8)
-            tidv = f(15)
-            inside = (
-                (bc0 >= 0.0) & (bc1 >= 0.0) & (bc2 >= 0.0)
-                & (tidv >= 0.0) & ndc_s
-            )
-            denom = bc0 * f(9) + bc1 * f(10) + bc2 * f(11)
-            inside &= denom > 1e-10
-            if depth_mode == DEPTH_VIEWZ:
-                view_z = 1.0 / jnp.maximum(denom, 1e-10)
-                z01 = jnp.clip((view_z - zn) * inv_range, 0.0, 1.0)
-            else:
-                zlin = (bc0 * f(12) + bc1 * f(13) + bc2 * f(14)) \
-                    / jnp.maximum(denom, 1e-10)
-                z01 = jnp.clip(zlin * 0.5 + 0.5, 0.0, 1.0)
-
-            cand = jnp.where(inside, z01, 2.0)
-            best = jnp.min(cand, axis=0)                   # (sub_h, W)
-            d_s = depth_out[pl.ds(off, sub_h), :]
-            if not track_ids:
-                depth_out[pl.ds(off, sub_h), :] = jnp.minimum(best, d_s)
-                return 0
-            isbest = cand == best[None]
-            win_k = jnp.min(jnp.where(isbest, kids, big), axis=0)
-            win_tid = jnp.max(jnp.where(kids == win_k[None], tidv, -big),
-                              axis=0)
-            upd = best < d_s
-            t_s = tid_out[pl.ds(off, sub_h), :]
-            depth_out[pl.ds(off, sub_h), :] = jnp.where(upd, best, d_s)
-            tid_out[pl.ds(off, sub_h), :] = jnp.where(
-                upd, win_tid.astype(jnp.int32), t_s)
-            return 0
-
-        jax.lax.fori_loop(0, nb, band_body, 0)
-        return 0
-
-    jax.lax.fori_loop(0, n, entry_body, 0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "width", "height", "depth_mode", "tile_h", "tile_w", "chunk",
-        "ccap", "sub_h", "interpret", "track_ids",
-    ),
-)
-def rasterize_chunklist(
-    setup: TriSetup,
-    width: int,
-    height: int,
-    zn,
-    zf,
-    depth_init=None,
-    tid_init=None,
-    depth_mode: int = DEPTH_VIEWZ,
-    tile_h: int = 128,
-    tile_w: int = 128,
-    chunk: int = 16,
-    ccap: int | None = None,
-    sub_h: int = 32,
-    interpret: bool | None = None,
-    y_offset=0,
-    full_height: int | None = None,
-    track_ids: bool = True,
-):
-    """Chunk-worklist tiled rasterization (see _chunklist_kernel).
-
-    Returns (depth01, tid, max_chunks_per_tile) — if max exceeds `ccap`,
-    worklists overflowed and ccap must be raised."""
-    if interpret is None:
-        interpret = default_interpret()
-    if full_height is None:
-        full_height = height
-    assert tile_h % sub_h == 0 and tile_h // sub_h <= 4, \
-        "band encoding uses 2 bits: tile_h/sub_h <= 4"
-    tiles_x = _cdiv(width, tile_w)
-    tiles_y = _cdiv(height, tile_h)
-    num_tiles = tiles_x * tiles_y
-    ph, pw = tiles_y * tile_h, tiles_x * tile_w
-
-    n = setup.coef.shape[0]
-    n_pad = _cdiv(n, _SUPER) * _SUPER
-
-    # Worklist capacity: ccap >= n_chunks makes overflow IMPOSSIBLE (a
-    # tile can at most list every chunk); only the SMEM prefetch budget
-    # (~700KB) caps it below that, in which case the returned
-    # max_chunks_per_tile must be checked against ccap by the caller.
-    smem_int_budget = 700_000 // 4
-    n_chunks = n_pad // chunk
-    if ccap is None:
-        ccap = n_chunks
-    ccap = max(8, min(ccap, (smem_int_budget - num_tiles) // num_tiles))
-
-    tid_f = jnp.where(setup.valid, jnp.arange(n, dtype=jnp.float32), -1.0)
-    rec = jnp.concatenate(
-        [setup.coef, setup.iw, setup.ziw, tid_f[:, None]], axis=-1
-    )
-    rec = jnp.pad(rec, ((0, n_pad - n), (0, 112)))
-    rec = rec.at[n:, 15].set(-1.0) if n_pad > n else rec
-
-    clists, counts, max_cnt = _chunk_lists(
-        setup, n_pad, chunk, tiles_x, tiles_y, tile_w, tile_h, ccap,
-        jnp.asarray(y_offset, jnp.float32), sub_h,
-    )
-
-    if depth_init is None:
-        depth_init = jnp.ones((height, width), jnp.float32)
-    if tid_init is None:
-        tid_init = jnp.full((height, width), -1, jnp.int32)
-    dpad = jnp.pad(depth_init, ((0, ph - height), (0, pw - width)),
-                   constant_values=1.0)
-    tpad = jnp.pad(tid_init, ((0, ph - height), (0, pw - width)),
-                   constant_values=-1)
-
-    zparams = jnp.zeros((1, 128), jnp.float32)
-    zparams = (
-        zparams.at[0, 0].set(zn)
-        .at[0, 1].set(1.0 / jnp.maximum(zf - zn, 1e-6))
-        .at[0, 2].set(jnp.asarray(y_offset, jnp.float32))
-        .at[0, 3].set(jnp.float32(full_height - 1))
-    )
-
-    kern = functools.partial(
-        _chunklist_kernel,
-        width=width, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
-        depth_mode=depth_mode, tiles_x=tiles_x, ccap=ccap, sub_h=sub_h,
-        track_ids=track_ids,
-    )
-    tile_block = lambda: pl.BlockSpec(  # noqa: E731
-        (tile_h, tile_w), lambda i, j, c, s: (i, j), memory_space=pltpu.VMEM
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(tiles_y, tiles_x),
-        in_specs=[
-            pl.BlockSpec((1, 128), lambda i, j, c, s: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),  # setup stays in HBM
-            tile_block(),
-            tile_block(),
-        ],
-        out_specs=(tile_block(), tile_block()),
-        scratch_shapes=[
-            pltpu.VMEM((2, chunk, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    depth, tid = pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((ph, pw), jnp.float32),
-            jax.ShapeDtypeStruct((ph, pw), jnp.int32),
-        ),
-        input_output_aliases={4: 0, 5: 1},
-        interpret=interpret,
-    )(counts, clists.reshape(-1), zparams, rec, dpad, tpad)
-
-    return depth[:height, :width], tid[:height, :width], max_cnt
-
-
-# ---------------------------------------------------------------------------
-# Host wrapper
-# ---------------------------------------------------------------------------
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "width", "height", "depth_mode", "tile_h", "tile_w", "cap", "chunk",
-        "interpret",
-    ),
-)
-def rasterize_tiled(
-    setup: TriSetup,
-    width: int,
-    height: int,
-    zn,
-    zf,
-    depth_init=None,
-    tid_init=None,
-    depth_mode: int = DEPTH_VIEWZ,
-    tile_h: int = 32,
-    tile_w: int = 128,
-    cap: int = 512,
-    chunk: int = 8,
-    interpret: bool | None = None,
-    y_offset=0,
-    full_height: int | None = None,
-):
-    """Tile-parallel rasterization.  Returns (depth01 (H,W), tid (H,W), max_bin).
-
-    max_bin is the largest per-tile triangle count BEFORE capping — if it
-    exceeds `cap`, triangles were dropped and `cap` must be raised.
-
-    y_offset/full_height support screen-space sharding: this call renders
-    global rows [y_offset, y_offset + height) of a full_height framebuffer.
-    """
-    if interpret is None:
-        interpret = default_interpret()
-    if full_height is None:
-        full_height = height
-    tiles_x = _cdiv(width, tile_w)
-    tiles_y = _cdiv(height, tile_h)
-    num_tiles = tiles_x * tiles_y
-    ph, pw = tiles_y * tile_h, tiles_x * tile_w
-
-    lists, counts, max_bin = bin_triangles(
-        setup, width, height, tile_h, tile_w, cap, y_offset=y_offset
-    )
-    tile_rec = pack_tile_setup(setup, lists)
-
-    if depth_init is None:
-        depth_init = jnp.ones((height, width), jnp.float32)
-    if tid_init is None:
-        tid_init = jnp.full((height, width), -1, jnp.int32)
-    dpad = jnp.pad(depth_init, ((0, ph - height), (0, pw - width)), constant_values=1.0)
-    tpad = jnp.pad(tid_init, ((0, ph - height), (0, pw - width)), constant_values=-1)
-
-    zparams = jnp.zeros((1, 128), jnp.float32)
-    zparams = (
-        zparams.at[0, 0].set(zn)
-        .at[0, 1].set(1.0 / jnp.maximum(zf - zn, 1e-6))
-        .at[0, 2].set(jnp.asarray(y_offset, jnp.float32))
-        .at[0, 3].set(jnp.float32(full_height - 1))
-    )
-
-    kern = functools.partial(
-        _raster_kernel,
-        width=width,
-        height=height,
-        tile_h=tile_h,
-        tile_w=tile_w,
-        cap=cap,
-        chunk=chunk,
-        depth_mode=depth_mode,
-        tiles_x=tiles_x,
-    )
-
-    tile_block = lambda: pl.BlockSpec(  # noqa: E731
-        (tile_h, tile_w), lambda i, j, c: (i, j), memory_space=pltpu.VMEM
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(tiles_y, tiles_x),
-        in_specs=[
-            pl.BlockSpec((1, 128), lambda i, j, c: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, cap, 16), lambda i, j, c: (i * tiles_x + j, 0, 0),
-                         memory_space=pltpu.VMEM),
-            tile_block(),
-            tile_block(),
-        ],
-        out_specs=(tile_block(), tile_block()),
-    )
-    depth, tid = pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((ph, pw), jnp.float32),
-            jax.ShapeDtypeStruct((ph, pw), jnp.int32),
-        ),
-        input_output_aliases={3: 0, 4: 1},
-        interpret=interpret,
-    )(counts, zparams, tile_rec, dpad, tpad)
-
-    return depth[:height, :width], tid[:height, :width], max_bin

@@ -19,7 +19,7 @@ from lsr_tpu.core import math3d as m3
 from lsr_tpu.raster.brute import rasterize_brute
 from lsr_tpu.raster.interp import interpolate_gbuffer
 from lsr_tpu.raster.setup import scene_setup
-from lsr_tpu.raster.tiled import rasterize_tiled
+from lsr_tpu.raster.tiled import rasterize_direct
 from lsr_tpu.shading.models import SHADING_MODELS, composite_over_background
 from lsr_tpu.passes.tonemap import tonemap_pass
 
@@ -94,7 +94,7 @@ def concat_scene(meshes, object_of_mesh=None, spatial_sort=True):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("width", "height", "model_name", "use_tiled", "cap", "exposure", "gamma"),
+    static_argnames=("width", "height", "model_name", "use_tiled", "exposure", "gamma"),
 )
 def render_forward(
     batch,
@@ -109,7 +109,6 @@ def render_forward(
     model_name: str = "blinn_phong",
     background=(0.05, 0.07, 0.12),
     use_tiled: bool = True,
-    cap: int = 1024,
     exposure: float = 1.0,
     gamma: float = 2.2,
 ):
@@ -120,12 +119,8 @@ def render_forward(
         models, normal_mats, viewproj, width, height,
     )
     if use_tiled:
-        from lsr_tpu.raster.tiled import rasterize_direct
-
-        if setup.count <= 150_000:
-            depth, tid, _ = rasterize_direct(setup, width, height, zn, zf)
-        else:
-            depth, tid, _ = rasterize_tiled(setup, width, height, zn, zf, cap=cap)
+        depth, tid, _ = rasterize_direct(setup, width, height, zn, zf,
+                                         spatial_sort=True)
     else:
         depth, tid = rasterize_brute(setup, width, height, zn, zf)
     gb = interpolate_gbuffer(setup, depth, tid, materials=shade_ctx.materials)

@@ -5,7 +5,7 @@ cosine-hemisphere sampling :86-139, specular prefilter via Phong-lobe
 sampling per mip :140-213, trilinear prefiltered lookup :272).  The Monte
 Carlo estimators are replaced by deterministic quasi-Monte-Carlo (Hammersley)
 sequences so results are reproducible, and every integral is one batched
-einsum over sample directions (MXU-shaped) instead of per-texel loops.
+einsum over sample directions instead of per-texel loops.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Shading common: materials SoA, texture sampling, shared BRDF helpers.
 
 Fragment shaders in this framework are fused fullscreen array transforms over
-the G-buffer (the TPU re-expression of the per-pixel std::function FS of
+the G-buffer (the JAX re-expression of the per-pixel std::function FS of
 shader/program.hpp:22).  Per-object uniforms live in SoA arrays gathered by
 the per-pixel object id.
 """
@@ -85,7 +85,7 @@ def _norm(v, eps=1e-12):
 
 def pack_material_records(m: MaterialsSoA):
     """(O, 16) packed record: one wide per-pixel gather beats per-column
-    gathers by ~10x on TPU.  Layout: [0:3] base_color | [3] metallic |
+    gathers.  Layout: [0:3] base_color | [3] metallic |
     [4] roughness | [5] ao | [6:9] emissive | [9] tex_id | [10] normal_tex |
     [11] orm_tex | [12] emissive_tex | [13:16] pad."""
     o = m.base_color.shape[0]
@@ -169,7 +169,7 @@ def apply_surface_maps(textures, quads, uv, tangent, n,
 def pack_texture_quads(textures):
     """(NT, TH, TW, 3) -> (NT*TH*TW, 12): each texel row holds its 2x2
     clamped neighborhood [c00 c10 c01 c11], so bilinear sampling needs ONE
-    row gather instead of four (TPU gathers are per-row-overhead bound)."""
+    row gather instead of four (gathers pay a per-row overhead)."""
     nt, th, tw, _ = textures.shape
     right = jnp.concatenate([textures[:, :, 1:], textures[:, :, -1:]], axis=2)
     down = jnp.concatenate([textures[:, 1:], textures[:, -1:]], axis=1)

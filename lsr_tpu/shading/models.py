@@ -33,7 +33,7 @@ _PI = 3.14159265358979
     data_fields=[
         "light_dir_ws", "light_color", "light_intensity", "camera_pos",
         "materials", "textures", "shadow", "texture_quads", "ibl",
-        "mat_override",
+        "mat_override", "sun_vis",
     ],
     meta_fields=["surface_maps"],
 )
@@ -54,6 +54,8 @@ class ShadeContext:
     mat_override: tuple | None = None  # per-pixel (albedo, metal, rough, ao,
                                 # emissive) — set by surface-map application
                                 # so ORM/emissive maps reach every model
+    sun_vis: jnp.ndarray | None = None  # (H, W) precomputed sun shadow
+                                # visibility (forward+ at reduced resolution)
     surface_maps: bool = False  # STATIC: any normal/ORM/emissive slot used
                                 # (set by make_shade_context; gates the
                                 # extra texture gathers per frame)
@@ -135,6 +137,8 @@ def _common_vectors(gb, ctx):
 
 
 def _shadow_term(gb, ctx, ndl):
+    if ctx.sun_vis is not None:
+        return ctx.sun_vis[..., None]
     if ctx.shadow is None:
         return 1.0
     vis = shadow_visibility_dir(ctx.shadow, gb.world_pos, ndl[..., 0])

@@ -1,7 +1,7 @@
 """Procedural 2D fragment-shader library (the hello-shaders demo family).
 
 Every function is a fullscreen field: (H, W) uv/pixel grids -> (H, W, 3)
-colors, evaluated as one fused VPU pass — the TPU form of the reference's
+colors, evaluated as one fused elementwise pass — the array form of the reference's
 per-pixel fragment_shader loops (hello-shaders/*.cpp).
 
 Building blocks mirror shs::Math (shs_renderer.hpp:127-197): the sin-dot

@@ -99,13 +99,14 @@ def camera_ray_dirs(inv_viewproj, width: int, height: int):
     return d / jnp.maximum(jnp.linalg.norm(d, axis=-1, keepdims=True), 1e-8)
 
 
-def procedural_sky_cubemap(size: int = 64, sun_dir_ws=None):
+def procedural_sky_cubemap(size: int = 64, sun_dir_ws=None,
+                           ground=(0.18, 0.16, 0.15)):
     """Bake the procedural sky into a (6, S, S, 3) cubemap (IBL source /
     CubemapSky input)."""
     from lsr_tpu.resources.ibl import _face_dirs
 
     dirs = jnp.asarray(_face_dirs(size))
-    return procedural_sky(dirs, sun_dir_ws=sun_dir_ws)
+    return procedural_sky(dirs, ground=ground, sun_dir_ws=sun_dir_ws)
 
 
 @functools.partial(jax.jit, static_argnames=("width", "height", "kind"))

@@ -1,16 +1,10 @@
 #!/bin/sh
-# Full protocol re-baseline on HEAD: goldens gate + Phase I (+post-stack
-# sweep) + Phase F (+ per-pass rows) + Phase G (180 s, net-of-floor), each
-# phase its own invocation/run_id with one retry (the first cold remote
-# compile after a code change sometimes dies silently; the disk compile
-# cache makes the retry fast).
-set -x
+# Full protocol re-baseline on HEAD, on the GPU: Phase I (+post-stack
+# sweep), Phase F (+ per-pass rows) and Phase G (180 s), each phase its own
+# invocation/run_id, one after another (one process per card).
+set -ex
 cd "$(dirname "$0")/.."
 
-run() { "$@" || { echo "RETRY: $*" >&2; sleep 90; "$@"; }; }
-
-run env LSR_PHASE_F=0 LSR_PHASE_G=0 python scripts/run_phases.py
-run env LSR_PHASE_I=0 LSR_PHASE_I_POSTS=0 LSR_PHASE_G=0 \
-    LSR_PHASE_GOLDENS=0 python scripts/run_phases.py
-run env LSR_PHASE_I=0 LSR_PHASE_I_POSTS=0 LSR_PHASE_F=0 \
-    LSR_PHASE_GOLDENS=0 python scripts/run_phases.py
+env LSR_PHASE_F=0 LSR_PHASE_G=0 python scripts/run_phases.py
+env LSR_PHASE_I=0 LSR_PHASE_I_POSTS=0 LSR_PHASE_G=0 python scripts/run_phases.py
+env LSR_PHASE_I=0 LSR_PHASE_I_POSTS=0 LSR_PHASE_F=0 python scripts/run_phases.py

@@ -3,7 +3,7 @@
 Implements the *full* reference pipeline — 6-plane Sutherland-Hodgman clipping,
 fan re-triangulation, sequential per-pixel z-test — as slow, obviously-correct
 Python/numpy (mirroring rasterize_mesh, rasterizer.hpp:181-446).  Used only in
-tests to validate the TPU fast paths (which clip near-only + scissor, and
+tests to validate the fast paths (which clip near-only + scissor, and
 resolve depth by parallel reduction).
 """
 

@@ -6,15 +6,16 @@ import pytest
 
 from lsr_tpu.lighting.light_runtime import eval_env_probes
 from lsr_tpu.lighting.light_types import LIGHT_ENV_PROBE, LightSetBuilder
+from lsr_tpu.resources.assets import write_skybox
 from lsr_tpu.resources.cubemap import load_cubemap
 from lsr_tpu.sky.sky_models import sample_cubemap
 
-SKYBOX = "/root/reference/cpp-folders/src/assets/images/skybox/water_scene"
-
 
 @pytest.fixture(scope="module")
-def water_faces():
-    return jnp.asarray(load_cubemap(SKYBOX, size=128))
+def water_faces(tmp_path_factory):
+    # The seeded water_scene skybox, written as PNG faces and loaded back.
+    sky = write_skybox(str(tmp_path_factory.mktemp("water_scene")), size=256)
+    return jnp.asarray(load_cubemap(sky, size=128))
 
 
 def test_load_cubemap_shapes(water_faces):

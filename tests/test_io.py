@@ -4,8 +4,7 @@ import numpy as np
 
 from lsr_tpu.io.obj import load_obj, make_cube, make_plane, make_uv_sphere
 from lsr_tpu.io.png import read_png, save_canvas_png, write_png
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
+from lsr_tpu.resources.assets import HEAD_TRIANGLES, make_head_mesh, write_obj
 
 
 def test_png_roundtrip(tmp_path):
@@ -42,14 +41,20 @@ f 1/1/1 2/1/1 3/1/1 4/1/1
     assert np.allclose(mesh.normals[0], [0, 0, -1])
 
 
-def test_monkey_loads():
-    mesh = load_obj(MONKEY)
-    # 967 'f' records, all triangles in this export.
-    assert mesh.num_triangles == 967
+def test_monkey_loads(tmp_path):
+    # The seeded Suzanne stand-in, written to OBJ and parsed back.
+    gen = make_head_mesh()
+    mesh = load_obj(write_obj(str(tmp_path / "head.obj"), gen))
+    # 967 'f' records, all triangles, as in the reference's monkey.
+    assert mesh.num_triangles == HEAD_TRIANGLES == 967
+    assert mesh.num_vertices == gen.num_vertices
+    # The parser renumbers vertices in first-use order: compare corners.
+    np.testing.assert_array_equal(mesh.positions[mesh.indices],
+                                  gen.positions[gen.indices])
     assert mesh.positions.shape[1] == 3
     assert mesh.uvs.shape[0] == mesh.positions.shape[0]
     assert np.all(mesh.indices < mesh.num_vertices)
-    # Suzanne fits in roughly [-1.37, 1.37]
+    # Monkey-sized: fits in roughly [-1.5, 1.5]
     assert np.abs(mesh.positions).max() < 2.0
     # normals are unit length
     lens = np.linalg.norm(mesh.normals, axis=-1)

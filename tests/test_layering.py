@@ -4,7 +4,7 @@ The reference enforces its Value-Oriented-Programming layering with a
 grep-style ctest (`tools/check_vop_boundaries.sh:36-44`, registered as
 `shs_renderer_vop_boundary_check`): planner headers must not reach into
 `shs/rhi/drivers/` or `shs/rhi/sync/` (effects live at the edges), and
-`dynamic_cast` is forbidden.  The TPU-native analog: pipeline PLANNING is
+`dynamic_cast` is forbidden.  The JAX analog: pipeline PLANNING is
 deterministic pure-value Python (SURVEY §7 design stance) — the planner
 modules must not import jax (device effects), kernels, or the executor;
 only the executor (the runtime edge) touches devices.

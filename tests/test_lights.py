@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj, make_plane
+from lsr_tpu.io.obj import make_plane
 from lsr_tpu.lighting.light_culling import (
     cull_lights_clustered,
     cull_lights_tiled,
@@ -21,8 +21,7 @@ from lsr_tpu.raster.brute import rasterize_brute
 from lsr_tpu.raster.interp import interpolate_gbuffer
 from lsr_tpu.raster.setup import scene_setup
 from lsr_tpu.scene.scene import SceneBuilder, make_camera
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
+from lsr_tpu.resources.assets import make_head_mesh
 
 
 def test_attenuation_models():
@@ -88,7 +87,7 @@ def _light_ring(n, radius=3.0, y=0.5, intensity=1.2, rng_range=3.0):
 
 def _monkey_gbuffer(w, h):
     sb = SceneBuilder()
-    sb.add(load_obj(MONKEY), np.asarray(m3.translate([0, 0.2, 0])))
+    sb.add(make_head_mesh(), np.asarray(m3.translate([0, 0.2, 0])))
     sb.add(make_plane(6.0, y=-1.0), material=0, casts_shadow=False)
     geom, objects = sb.build()
     cam = make_camera(w, h, (0.5, 1.5, -4.0), (0, 0, 0))
@@ -187,46 +186,6 @@ def test_forward_plus_frame():
         assert a[np.asarray(gb.covered)].mean() > 0.01, mode
 
 
-def test_pallas_fplus_kernel_matches_xla():
-    from lsr_tpu.lighting.fplus_kernel import accumulate_lights_pallas
-
-    w, h = 96, 64
-    gb, cam = _monkey_gbuffer(w, h)
-    # Mixed light types to exercise every kernel branch.
-    b = LightSetBuilder()
-    rng = np.random.default_rng(5)
-    for i in range(12):
-        p = tuple(rng.uniform([-3, 0, -3], [3, 2, 3]).tolist())
-        c = tuple(rng.uniform(0.3, 1.0, 3).tolist())
-        if i % 4 == 0:
-            b.spot(p, (0, -1, 0), color=c, intensity=2.0, range=4.0)
-        elif i % 4 == 1:
-            b.rect_area(p, (0, -1, 0), color=c, intensity=1.5, range=4.0)
-        elif i % 4 == 2:
-            b.tube_area(p, axis=(1, 0, 0), color=c, intensity=1.5, range=4.0)
-        else:
-            b.point(p, color=c, intensity=1.5, range=3.0)
-    lights = b.build()
-    eye = jnp.array([0.5, 1.5, -4.0], jnp.float32)
-
-    lists, _, _ = cull_lights_tiled(lights, cam.view, cam.proj, w, h,
-                                    tile_size=16, cap=32)
-    d_x, s_x = accumulate_local_lights(
-        gb.world_pos, gb.normal_ws, eye, lights, lists, w, h,
-        tile_size=16, chunk=8)
-    d_x = jnp.where(gb.covered[..., None], d_x, 0.0)
-    s_x = jnp.where(gb.covered[..., None], s_x, 0.0)
-
-    d_p, s_p, pstats = accumulate_lights_pallas(
-        gb.world_pos, gb.normal_ws, gb.covered, eye, lights,
-        cam.view, cam.proj, w, h, tile_h=16, tile_w=128, cap=32, chunk=8)
-    assert int(pstats["max_count"]) <= 32
-    np.testing.assert_allclose(np.asarray(d_p), np.asarray(d_x),
-                               atol=3e-4, rtol=2e-3)
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x),
-                               atol=3e-4, rtol=2e-3)
-
-
 def test_forward_plus_zero_lights_equals_sun_only():
     """Regression: with no local lights, forward+ must equal plain sun shading
     (guards against accumulator/base mixups)."""
@@ -318,7 +277,7 @@ def test_shade_kernel_light_kinds_specialization():
     for types absent from light_kinds changes nothing, and the generic
     kernel (light_kinds=None) equals the specialized one for the full
     mixed set too."""
-    from lsr_tpu.lighting.shade_kernel import shade_fused_pallas
+    from lsr_tpu.lighting.shade_kernel import shade_local_lights
 
     w, h = 96, 64
     gb, cam = _monkey_gbuffer(w, h)
@@ -343,7 +302,6 @@ def test_shade_kernel_light_kinds_specialization():
 
     eye = jnp.array([0.5, 1.5, -4.0], jnp.float32)
     albedo = jnp.full((h, w, 3), 0.6, jnp.float32)
-    ones = jnp.ones((h, w), jnp.float32)
 
     for mixed in (False, True):
         lights = build(mixed)
@@ -351,13 +309,10 @@ def test_shade_kernel_light_kinds_specialization():
                              np.unique(np.asarray(lights.type))))
 
         def run(lk, lights=lights):
-            lit, _ = shade_fused_pallas(
-                gb.world_pos, gb.normal_ws, gb.covered,
-                albedo, 0.2 * ones, 0.5 * ones, ones,
-                eye, jnp.asarray([0.3, -0.7, 0.5], jnp.float32),
-                jnp.asarray([2.0, 2.0, 2.0], jnp.float32),
+            lit, _ = shade_local_lights(
+                gb.world_pos, gb.normal_ws, gb.covered, albedo, eye,
                 lights, cam.view, cam.proj, w, h,
-                tile_h=16, tile_w=128, cap=32, chunk=8, light_kinds=lk)
+                tile_size=16, cap=32, light_kinds=lk)
             return np.asarray(lit)
 
         a = run(None)

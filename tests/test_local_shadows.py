@@ -272,9 +272,8 @@ def test_vis_crop_bit_exact():
 
 def test_vis_crop_scales_to_vis_grid():
     """At vis_scale > 1 the crop cascade re-denominates to the strided eval
-    grid (ceil(size/sc) rounded up to TPU tiles) — full-res-sized levels
-    would cover sc^2 x the footprint area and defeat the crop (the r5 HEAD
-    ledger's 33.6 ms vis stack).  The scaled planes must still match the
+    grid (ceil(size/sc) rounded up to whole blocks) — full-res-sized levels
+    would cover sc^2 x the footprint area and defeat the crop.  The scaled planes must still match the
     uncropped vis_scale planes to 1 ULP."""
     import jax
 
@@ -325,7 +324,7 @@ def test_vis_crop_scales_to_vis_grid():
 
 
 def test_default_vis_crop_cascade_shape():
-    """default_vis_crop: TPU-tile-aligned levels (sublane x8, lane x128
+    """default_vis_crop: block-aligned levels (rows x8, columns x128
     unless capped at the screen edge), strictly below full screen, unique,
     ascending area, and the aspect-variant levels span each axis fully."""
     from lsr_tpu.lighting.local_shadows import default_vis_crop
@@ -341,7 +340,7 @@ def test_default_vis_crop_cascade_shape():
             assert cw % 128 == 0 or cw == w
     # At flagship-class resolutions the two aspect variants must exist so
     # near-camera lights that are screen-wide on ONE axis avoid the full
-    # grid (the Phase F overflow, dbg_pipe ab: 237 -> 155.5 ms @720p).
+    # grid.
     for (h, w) in ((1080, 1920), (720, 1280)):
         cascade = default_vis_crop(h, w)
         assert any(cw >= w and ch < h for ch, cw in cascade)

@@ -116,9 +116,10 @@ def test_dispatcher_formats(tmp_path):
     p.write_text(json.dumps(doc))
     assert load_mesh(str(p)).num_triangles == 2
     assert len(load_meshes(str(p))) == 1
-    # The reference's own asset goes through the dispatcher too.
-    m = load_mesh(
-        "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj")
+    # An OBJ goes through the dispatcher too (the seeded monkey stand-in).
+    from lsr_tpu.resources.assets import make_head_mesh, write_obj
+
+    m = load_mesh(write_obj(str(tmp_path / "head.obj"), make_head_mesh()))
     assert m.num_triangles > 400
     try:
         load_mesh(str(tmp_path / "x.dae"))

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj, make_plane
+from lsr_tpu.io.obj import make_plane
 from lsr_tpu.passes.forward_plus import shade_forward_plus
 from lsr_tpu.raster.brute import rasterize_brute
 from lsr_tpu.raster.interp import interpolate_gbuffer
@@ -19,13 +19,12 @@ from lsr_tpu.shading.common import (
     make_materials,
 )
 from lsr_tpu.shading.models import make_shade_context
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
+from lsr_tpu.resources.assets import make_head_mesh
 
 
 def _frame(mats, textures, w=128, h=96):
     sb = SceneBuilder()
-    sb.add(load_obj(MONKEY), np.asarray(m3.translate([0, 0.2, 0])))
+    sb.add(make_head_mesh(), np.asarray(m3.translate([0, 0.2, 0])))
     sb.add(make_plane(6.0, y=-1.0), material=1 % mats.base_color.shape[0],
            casts_shadow=False)
     geom, objects = sb.build()

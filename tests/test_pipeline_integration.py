@@ -11,7 +11,7 @@ import pytest
 
 from lsr_tpu.core import math3d as m3
 from lsr_tpu.core.frame import FrameParams, LightCullingMode, TechniqueMode
-from lsr_tpu.io.obj import load_obj, make_plane
+from lsr_tpu.io.obj import make_plane
 from lsr_tpu.lighting.light_types import LightSetBuilder
 from lsr_tpu.passes.standard_passes import make_standard_registry
 from lsr_tpu.pipeline.executor import RenderContext
@@ -20,8 +20,8 @@ from lsr_tpu.pipeline.recipe import builtin_render_path_presets, compile_recipe
 from lsr_tpu.scene.scene import SceneBuilder, make_camera
 from lsr_tpu.shading.common import make_materials
 from lsr_tpu.shading.models import make_shade_context
+from lsr_tpu.resources.assets import make_head_mesh
 
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
 
 _MODE_FOR = {
     "forward_classic": TechniqueMode.FORWARD,
@@ -34,7 +34,7 @@ _MODE_FOR = {
 
 def _scene_state(w, h):
     sb = SceneBuilder()
-    sb.add(load_obj(MONKEY), np.asarray(m3.translate([0, 0.2, 0])))
+    sb.add(make_head_mesh(), np.asarray(m3.translate([0, 0.2, 0])))
     sb.add(make_plane(6.0, y=-1.0), material=1, casts_shadow=False)
     geom, objects = sb.build()
     cam = make_camera(w, h, (0.5, 1.5, -4.0), (0, 0, 0))
@@ -66,7 +66,6 @@ def test_preset_renders(preset):
     fp.technique.cluster_slices = 8
     fp.technique.max_lights_per_tile = 32
     fp.pass_params.shadow.map_size = 128
-    fp.raster_tile_h = 16
 
     pipe = PluggablePipeline(preexisting_semantics=())
     report = pipe.configure_from_recipe(preset, reg)
@@ -102,7 +101,6 @@ def test_full_post_stack_runs():
     fp.technique.tile_size = 16
     fp.technique.max_lights_per_tile = 32
     fp.pass_params.shadow.map_size = 128
-    fp.raster_tile_h = 16
     fp.enable_motion_vectors = True
     fp.enable_motion_blur = True
     fp.enable_light_shafts = True
@@ -140,7 +138,6 @@ def test_debug_views_through_pipeline():
     fp = FrameParams(width=w, height=h)
     fp.technique.mode = TechniqueMode.FORWARD
     fp.pass_params.shadow.map_size = 64
-    fp.raster_tile_h = 16
     pipe = PluggablePipeline(preexisting_semantics=())
     assert pipe.configure_from_recipe(preset, reg).ok
     for mode in (DebugViewMode.ALBEDO, DebugViewMode.NORMAL, DebugViewMode.DEPTH):
@@ -160,7 +157,6 @@ def test_jitted_execution_matches_eager():
     fp.technique.tile_size = 16
     fp.technique.max_lights_per_tile = 32
     fp.pass_params.shadow.map_size = 128
-    fp.raster_tile_h = 16
     fp.enable_taa = False
 
     pipe = PluggablePipeline(preexisting_semantics=())
@@ -200,11 +196,11 @@ def test_flagship_workload_culling_and_local_shadows():
 
     w, h = 96, 64
     sb = SceneBuilder()
-    sb.add(load_obj(MONKEY), np.asarray(m3.translate([0, 0.2, 0])))
+    sb.add(make_head_mesh(), np.asarray(m3.translate([0, 0.2, 0])))
     sb.add(make_cube(0.8), np.asarray(m3.translate([1.2, 0.3, 0.5])))
     # Behind the camera: frustum culling must drop it from the view (but it
     # may still cast shadows).
-    sb.add(load_obj(MONKEY), np.asarray(m3.translate([0.5, 1.5, -9.0])))
+    sb.add(make_head_mesh(), np.asarray(m3.translate([0.5, 1.5, -9.0])))
     sb.add(make_plane(6.0, y=-1.0), material=1, casts_shadow=False)
     geom, objects = sb.build()
     cam = make_camera(w, h, (0.5, 1.5, -4.0), (0, 0, 0))
@@ -236,7 +232,6 @@ def test_flagship_workload_culling_and_local_shadows():
     fp.pass_params.local_shadow = dataclasses.replace(
         fp.pass_params.local_shadow, spot_ids=spot_ids,
         point_ids=point_ids, map_size=128, point_size=64)
-    fp.raster_tile_h = 16
 
     pipe = PluggablePipeline(preexisting_semantics=())
     assert pipe.configure_from_recipe(preset, reg).ok
@@ -268,7 +263,6 @@ def test_flagship_workload_culling_and_local_shadows():
     fp2.pass_params.shadow.map_size = 128
     fp2.pass_params.local_shadow = dataclasses.replace(
         fp2.pass_params.local_shadow, enabled=False)
-    fp2.raster_tile_h = 16
     pipe2 = PluggablePipeline(preexisting_semantics=())
     assert pipe2.configure_from_recipe(preset, reg).ok
     img_ns = np.asarray(pipe2.execute(RenderContext(), dict(state0),
@@ -299,7 +293,6 @@ def test_segmented_execution_times_passes():
     fp.technique.tile_size = 16
     fp.technique.max_lights_per_tile = 32
     fp.pass_params.shadow.map_size = 128
-    fp.raster_tile_h = 16
     fp.enable_taa = False
 
     pipe = PluggablePipeline(preexisting_semantics=())
@@ -308,7 +301,7 @@ def test_segmented_execution_times_passes():
     state = _scene_state(w, h)
     eager = pipe.execute(RenderContext(), dict(state), fp)
     ctx = RenderContext()
-    seg = pipe.execute_segmented(ctx, dict(state), fp, iters=(1, 2))
+    seg = pipe.execute_segmented(ctx, dict(state), fp, reps=2)
     np.testing.assert_allclose(np.asarray(seg["ldr"]),
                                np.asarray(eager["ldr"]), atol=1)
     executed = [p.pass_id for p in pipe.passes
@@ -339,7 +332,6 @@ def test_preset_esm_filter_mode():
         fp.technique.light_culling = preset.light_culling
         fp.technique.tile_size = 16
         fp.technique.max_lights_per_tile = 32
-        fp.raster_tile_h = 16
         fp.pass_params.shadow = dataclasses.replace(
             fp.pass_params.shadow, map_size=128, filter_mode=mode,
             sun_vis_scale=vs)

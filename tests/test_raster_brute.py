@@ -5,14 +5,13 @@ import numpy as np
 import pytest
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj, make_cube
+from lsr_tpu.io.obj import make_cube
 from lsr_tpu.raster.brute import rasterize_brute
 from lsr_tpu.raster.interp import interpolate_gbuffer
 from lsr_tpu.raster.setup import scene_setup
+from lsr_tpu.resources.assets import make_head_mesh
 
 from tests.oracle import rasterize_oracle
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
 
 
 def _camera(width, height, eye=(0.0, 0.0, -3.0), target=(0.0, 0.0, 0.0), fov=np.pi / 3):
@@ -67,7 +66,7 @@ def _compare(gb, oracle, cov_tol=0.005, depth_tol=2e-3, attr_tol=2e-2):
 
 
 def test_monkey_depth_and_attrs_match_oracle():
-    mesh = load_obj(MONKEY)
+    mesh = make_head_mesh()
     model = np.asarray(m3.rotate_y(0.4))
     gb, oracle = _run_pair(mesh, model, 96, 96)
     _compare(gb, oracle)

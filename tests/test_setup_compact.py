@@ -11,11 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj, make_cube
+from lsr_tpu.io.obj import make_cube
 from lsr_tpu.raster.brute import rasterize_brute
 from lsr_tpu.raster.setup import scene_setup, scene_setup_compact
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
+from lsr_tpu.resources.assets import make_head_mesh
 
 
 def _geom(mesh):
@@ -86,7 +85,7 @@ def _compare(mesh, model, vp, w=160, h=96, obj_visible=None, **kw):
 
 
 def test_compact_matches_full_monkey():
-    mesh = load_obj(MONKEY)
+    mesh = make_head_mesh()
     stats = _compare(mesh, m3.rotate_y(0.5), _vp())
     # The monkey at this view: roughly half the triangles are backfacing,
     # none cross the near plane.
@@ -103,14 +102,14 @@ def test_compact_matches_full_near_clip():
 
 
 def test_compact_obj_visible_mask():
-    mesh = load_obj(MONKEY)
+    mesh = make_head_mesh()
     stats = _compare(mesh, m3.rotate_y(0.5), _vp(),
                      obj_visible=jnp.array([False]))
     assert int(stats.n_direct) == 0 and int(stats.n_clip) == 0
 
 
 def test_compact_overflow_flag():
-    mesh = load_obj(MONKEY)
+    mesh = make_head_mesh()
     args = _geom(mesh) + (
         jnp.asarray(np.asarray(m3.rotate_y(0.5)))[None],
         np.asarray(m3.normal_matrix(jnp.asarray(
@@ -146,7 +145,6 @@ def test_pipeline_compact_route_bit_exact():
         fp.technique.cluster_slices = 8
         fp.technique.max_lights_per_tile = 32
         fp.pass_params.shadow.map_size = 128
-        fp.raster_tile_h = 16
         fp.compact_setup_threshold = thresh
         pipe = PluggablePipeline(preexisting_semantics=())
         assert pipe.configure_from_recipe(preset, reg).ok

@@ -5,14 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from lsr_tpu.core import math3d as m3
-from lsr_tpu.io.obj import load_obj
 from lsr_tpu.render import concat_scene, render_forward, simple_camera
 from lsr_tpu.shading.common import checkerboard_texture, make_materials
 from lsr_tpu.shading.models import make_shade_context
+from lsr_tpu.resources.assets import make_head_mesh
 
 from tests.oracle import rasterize_oracle
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
 
 
 def _np_norm(v, axis=-1):
@@ -74,7 +72,7 @@ def np_blinn_phong(wp, n, uv, covered, base_color, metal, rough, ao,
 
 
 def test_blinn_phong_frame_matches_oracle():
-    mesh = load_obj(MONKEY)
+    mesh = make_head_mesh()
     w, h = 128, 128
     model = np.asarray(m3.rotate_y(0.4))
     vp, zn, zf = simple_camera(w, h, (0.3, 0.4, -3.0), (0, 0, 0))
@@ -127,7 +125,7 @@ def test_blinn_phong_frame_matches_oracle():
 
 
 def test_all_shading_models_run():
-    mesh = load_obj(MONKEY)
+    mesh = make_head_mesh()
     w, h = 64, 64
     model = np.eye(4, dtype=np.float32)
     vp, zn, zf = simple_camera(w, h, (0, 0, -3.0), (0, 0, 0))
@@ -150,7 +148,7 @@ def test_all_shading_models_run():
 
 
 def test_gouraud_interpolates_corner_lighting():
-    mesh = load_obj(MONKEY)
+    mesh = make_head_mesh()
     w, h = 64, 64
     model = np.eye(4, dtype=np.float32)
     vp, zn, zf = simple_camera(w, h, (0, 0, -3.0), (0, 0, 0))

@@ -10,20 +10,20 @@ from lsr_tpu.geometry.occlusion import (
     occlusion_cull_aabbs,
     run_occlusion_pass,
 )
-from lsr_tpu.io.obj import load_obj, make_cube, make_plane
+from lsr_tpu.io.obj import make_cube, make_plane
 from lsr_tpu.lighting.shadow_sample import shadow_visibility_dir
 from lsr_tpu.passes.shadow import make_sun_shadow, render_shadow_map
 from lsr_tpu.scene.scene import SceneBuilder, cull_scene, make_camera
 from lsr_tpu.shading.models import make_shade_context
 from lsr_tpu.shading.common import make_materials
+from lsr_tpu.resources.assets import make_head_mesh
 
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
 SUN = (0.3, -1.0, 0.25)
 
 
 def _shadow_scene():
     b = SceneBuilder()
-    b.add(load_obj(MONKEY), np.asarray(m3.translate([0.0, 0.6, 0.0])))
+    b.add(make_head_mesh(), np.asarray(m3.translate([0.0, 0.6, 0.0])))
     b.add(make_plane(5.0, y=-1.0), material=1, casts_shadow=False)
     return b.build()
 

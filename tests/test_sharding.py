@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from lsr_tpu.core import math3d as m3
 from lsr_tpu.io.obj import make_cube
@@ -111,7 +112,7 @@ def test_sharded_flagship_bit_exact():
 
 
 def test_light_sharded_forward():
-    """Lights sharded over "lp" (partial-sum psum over ICI) must match the
+    """Lights sharded over "lp" (partial-sum psum across devices) must match the
     (sp=1, lp=1) frame up to float reassociation of the light sum (u8
     off-by-one at most after tonemap quantization)."""
     import jax.numpy as jnp
@@ -186,3 +187,57 @@ def test_pipeline_parallel_render():
         assert d.max() <= 1, f"frame {i}: max|d|={d.max()}"
         assert (d != 0).mean() < 0.01, f"frame {i}: {(d != 0).mean()}"
         assert out[i].any()
+
+
+@pytest.mark.parametrize("band_h,tile,rows", [
+    (32, 16, 2),    # whole tiles: exactly the band
+    (270, 16, 18),  # 1080 / 4: the tile-aligned window around the band
+    (18, 16, 3),     # conservative: offsets up to tile - 1
+    (1080, 16, 69),
+])
+def test_band_window_covers_every_band(band_h, tile, rows):
+    from lsr_tpu.parallel.sharding import _band_window
+
+    assert _band_window(band_h, tile) == rows
+    # Every band [y0, y0 + band_h) fits in the window that starts at its
+    # first tile row.
+    for i in range(4):
+        y0 = i * band_h
+        assert (y0 % tile) + band_h <= rows * tile
+
+
+def test_row_bands_not_whole_light_tiles():
+    """sp=4 bands of 18 rows over 16-px light tiles: each band shades the
+    tile-aligned window around it, so the frame is bit-exact vs one
+    device."""
+    from lsr_tpu.io.obj import make_plane
+    from lsr_tpu.lighting.light_types import LightSetBuilder
+    from lsr_tpu.parallel.sharding import (
+        make_light_sharded_forward, make_mesh_lp)
+
+    b = SceneBuilder()
+    b.add(make_cube(1.1), np.asarray(m3.rotate_y(0.4)))
+    b.add(make_plane(5.0, y=-1.0), material=0, casts_shadow=False)
+    geom, objects = b.build()
+    mats = make_materials(base_color=[(0.8, 0.5, 0.3)])
+    ctx = make_shade_context(mats, light_dir_ws=(0.35, -0.7, 0.5),
+                             camera_pos=(0.5, 1.8, -3.5), light_intensity=2.0)
+    lb = LightSetBuilder()
+    rng = np.random.default_rng(5)
+    for _ in range(6):
+        lb.point(tuple(rng.uniform([-2, 0.2, -2], [2, 1.5, 2]).tolist()),
+                 intensity=1.5, range=2.5)
+    lights = lb.build()
+    w, h = 48, 72
+    cam = make_camera(w, h, (0.5, 1.8, -3.5), (0, 0, 0))
+
+    def run(mesh):
+        step, _ = make_light_sharded_forward(mesh, geom, objects, ctx,
+                                             lights, w, h, cap=8)
+        return np.asarray(step(cam.viewproj, cam.view, cam.proj, cam.zn,
+                               cam.zf))
+
+    ref = run(make_mesh_lp(1, sp=1, lp=1))
+    out = run(make_mesh_lp(4, sp=4, lp=1))
+    assert ref.any()
+    np.testing.assert_array_equal(out, ref)

@@ -2,12 +2,10 @@
 
 import numpy as np
 
-from lsr_tpu.io.obj import load_obj
 from lsr_tpu.raster.wireframe import render_wireframe
+from lsr_tpu.resources.assets import make_head_mesh
 
 from tests.test_lines import bresenham_reference
-
-MONKEY = "/root/reference/cpp-folders/src/assets/obj/monkey/monkey.rawobj"
 
 
 def reference_wireframe(mesh, w, h):
@@ -31,7 +29,7 @@ def reference_wireframe(mesh, w, h):
 
 
 def test_wireframe_matches_reference_port():
-    mesh = load_obj(MONKEY)
+    mesh = make_head_mesh()
     w = h = 128
     ours = np.asarray(render_wireframe(mesh, w, h))
     ref = reference_wireframe(mesh, w, h)
